@@ -1,0 +1,186 @@
+"""Render CLI (reference app/Main.hs:43-125).
+
+Usage::
+
+    python -m blackstar_tpu_torch render SCENE.yaml [-o DIR] [--preview] [--force]
+                                         [--starmap stars.grid.npz] [--stats]
+                                         [--resume] [--device cuda]
+
+A directory input renders every ``*.yaml`` inside it in sorted order (batch
+mode, app/Main.hs:64-78). ``--preview`` caps the long side at 300 px and
+disables supersampling/bloom (app/Main.hs:93-103), prefixing outputs with
+``prev-``. ``--device`` (default ``cuda``) picks where the frame is
+rendered: on a CUDA device through the march and star kernels, on ``cpu``
+through their plain PyTorch versions. The default starmap, missing on a
+fresh checkout, is built from ``stars.ppm`` on first use.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from blackstar_tpu_torch.util import clear_screen, normalize_path, prompt_overwrite_file, time_action
+
+DEFAULT_STARMAP = "stars.grid.npz"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="blackstar_tpu_torch render")
+    p.add_argument("inputfile", help="scene YAML file or directory of scenes")
+    p.add_argument("-o", "--output", default="", metavar="PATH", help="output directory")
+    p.add_argument("--preview", action="store_true", help="preview render (small size)")
+    p.add_argument("-f", "--force", action="store_true", help="overwrite images without asking")
+    p.add_argument(
+        "--starmap", default=DEFAULT_STARMAP, metavar="PATH",
+        help=f"path to star grid (default: {DEFAULT_STARMAP})",
+    )
+    p.add_argument("--stats", action="store_true", help="print per-render ray statistics")
+    p.add_argument(
+        "--resume", action="store_true",
+        help="batch mode: skip scenes whose output PNG already exists",
+    )
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default: cuda)")
+    return p
+
+
+class _StarGridCache:
+    """Per-dtype star-grid loader: the .npz stores float64 values, so each
+    scene dtype gets a grid loaded at that precision (a float64 golden run
+    must not see f32-rounded star data). Tables go to the device once."""
+
+    def __init__(self, path: str, device: torch.device):
+        self.path = path
+        self.device = device
+        self._grids = {}
+
+    def get(self, dtype: torch.dtype):
+        if dtype not in self._grids:
+            from blackstar_tpu_torch.stars.grid import load_star_grid
+
+            self._grids[dtype] = load_star_grid(self.path, self.device, dtype=dtype)
+        return self._grids[dtype]
+
+
+def _load_stars(path: str, device: torch.device):
+    """A missing starmap is a warning, not an error — scenes render with a
+    black sky (the reference exits instead, app/Main.hs:46-50). The
+    repository's default grid is built from ``stars.ppm`` when missing."""
+    if not os.path.exists(path):
+        from blackstar_tpu_torch.stars import artifact
+
+        if os.path.exists(path + ".npz"):
+            path = path + ".npz"
+        elif os.path.abspath(path) == artifact.default_grid_path() and \
+                os.path.exists(artifact.default_catalog_path()):
+            print(f"Building the star grid {path} from stars.ppm...")
+            with time_action("Star grid build"):
+                path = artifact.ensure_star_grid(os.path.abspath(path))
+        else:
+            print(f"Warning: starmap {path} not found; rendering without stars.")
+            return None
+    # Defer the actual load until the first scene's dtype is known.
+    print("Starmap found.")
+    return _StarGridCache(path, device)
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device, so the printed times are the work's."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def handle_scene(args, star_grid, outdir: str, filename: str, device: torch.device) -> bool:
+    from blackstar_tpu_torch.config import apply_preview, load_config
+    from blackstar_tpu_torch.imageio import encode_rgb8, write_png
+    from blackstar_tpu_torch.ops.filters import bloom
+    from blackstar_tpu_torch.render import render
+
+    scene_name = os.path.splitext(os.path.basename(filename))[0]
+    if args.preview:
+        out_name = os.path.join(outdir, "prev-" + scene_name + ".png")
+    else:
+        out_name = os.path.join(outdir, scene_name + ".png")
+    if args.resume and os.path.exists(out_name):
+        print(f"Skipping {filename} ({out_name} exists).")
+        return True
+    print(f"Reading {filename}...")
+    try:
+        cfg = load_config(filename)
+    except Exception as e:  # the batch boundary: a bad scene is reported and skipped (app/Main.hs:91)
+        print(f"Error when decoding config:\n{e!r}")
+        return False
+    print("Scene successfully read.")
+    if args.preview:
+        cfg = apply_preview(cfg)
+        scene_name = "prev-" + scene_name
+
+    params, static = cfg.params(device), cfg.static()
+    grid = star_grid.get(static.tdtype) if star_grid is not None else None
+
+    print(f"Rendering {scene_name}...")
+    with time_action("Rendering"):
+        if args.stats:
+            img, stats = render(params, static, grid, with_stats=True)
+        else:
+            img = render(params, static, grid)
+        _sync(device)
+    if args.stats:
+        print(
+            f"steps={int(stats.steps)} escaped={float(stats.escaped_frac):.3f} "
+            f"horizon={float(stats.horizon_frac):.3f} "
+            f"truncated={float(stats.truncated_frac):.6g}"
+        )
+
+    if cfg.scene.bloom_strength != 0.0:
+        print("Applying bloom...")
+        with time_action("Bloom"):
+            img = bloom(img, params.bloom_strength.to(img.dtype), static.bloom_divider)
+            _sync(device)
+
+    # sRGB + uint8 quantisation on the device: a quarter of the bytes cross
+    # to the host.
+    rgb8 = encode_rgb8(img).cpu().numpy()
+
+    print(f"Saving to {out_name}...")
+    prompt_overwrite_file(out_name, lambda p: write_png(rgb8, p), force=args.force)
+    return True
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+
+    star_grid = _load_stars(args.starmap, device)
+
+    outdir = normalize_path(args.output) if args.output else os.getcwd()
+    os.makedirs(outdir, exist_ok=True)
+
+    filename = normalize_path(args.inputfile)
+    if os.path.isdir(filename):
+        print(f"{filename} is a directory. Rendering all scenes inside it...")
+        files = sorted(
+            os.path.join(filename, f) for f in os.listdir(filename) if f.endswith(".yaml")
+        )
+        oks = []
+        for idx, scn in enumerate(files, 1):
+            clear_screen()
+            print(f"Batch mode progress: {idx}/{len(files)}")
+            oks.append(handle_scene(args, star_grid, outdir, scn, device))
+        # Reference batch semantics: failures are printed and skipped
+        # (app/Main.hs:72-78); exit non-zero only if nothing rendered.
+        if files and not any(oks):
+            print(f"Error: all {len(files)} scene(s) failed to render.")
+            return 1
+    elif not handle_scene(args, star_grid, outdir, filename, device):
+        return 1
+    print("Everything done. Thank you!")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
