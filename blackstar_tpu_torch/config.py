@@ -207,6 +207,11 @@ def load_config(path: str) -> Config:
     return Config.from_dict(d)
 
 
+def save_config(cfg: Config, path: str) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)
+
+
 # ---------------------------------------------------------------------------
 # Scene parameters as tensors
 # ---------------------------------------------------------------------------
@@ -245,31 +250,54 @@ class SceneParams:
     mass: torch.Tensor  # () Schwarzschild radius rs
 
 
+# The parameter leaves in the JAX package's pytree flatten order (dataclass
+# field order, depth first), which its checkpoints and masks follow.
+LEAF_PATHS = (
+    "camera.position", "camera.look_at", "camera.up", "camera.fov",
+    "disk.inner", "disk.outer", "disk.opacity", "disk.color_hsi",
+    "stars.intensity", "stars.saturation",
+    "bloom_strength", "mass",
+)
+
+
+def _get(tree, path: str):
+    for name in path.split("."):
+        tree = getattr(tree, name)
+    return tree
+
+
+def param_leaves(params: SceneParams):
+    """``[(dotted path, tensor), ...]`` in the JAX package's flatten order,
+    paths as its ``trainable_mask`` spells them (``".camera.position"``,
+    ``".disk.outer"``, ...)."""
+    return [("." + p, _get(params, p)) for p in LEAF_PATHS]
+
+
+def params_from_leaves(leaves) -> SceneParams:
+    """The inverse of :func:`param_leaves`: SceneParams from tensors in
+    :data:`LEAF_PATHS` order (kept as they are: same objects, devices and
+    dtypes)."""
+    leaves = list(leaves)
+    if len(leaves) != len(LEAF_PATHS):
+        raise ValueError(f"expected {len(LEAF_PATHS)} parameter leaves, got {len(leaves)}")
+    v = dict(zip(LEAF_PATHS, leaves))
+    return SceneParams(
+        camera=CameraParams(position=v["camera.position"], look_at=v["camera.look_at"],
+                            up=v["camera.up"], fov=v["camera.fov"]),
+        disk=DiskParams(inner=v["disk.inner"], outer=v["disk.outer"],
+                        opacity=v["disk.opacity"], color_hsi=v["disk.color_hsi"]),
+        stars=StarParams(intensity=v["stars.intensity"], saturation=v["stars.saturation"]),
+        bloom_strength=v["bloom_strength"],
+        mass=v["mass"],
+    )
+
+
 def _params(get, device, dtype: torch.dtype) -> SceneParams:
     """Assemble SceneParams from ``get(path)`` values (path like
     ``"camera.position"``)."""
-    t = lambda path: torch.tensor(np.asarray(get(path), np.float64),
-                                     dtype=dtype, device=device)
-    return SceneParams(
-        camera=CameraParams(
-            position=t("camera.position"),
-            look_at=t("camera.look_at"),
-            up=t("camera.up"),
-            fov=t("camera.fov"),
-        ),
-        disk=DiskParams(
-            inner=t("disk.inner"),
-            outer=t("disk.outer"),
-            opacity=t("disk.opacity"),
-            color_hsi=t("disk.color_hsi"),
-        ),
-        stars=StarParams(
-            intensity=t("stars.intensity"),
-            saturation=t("stars.saturation"),
-        ),
-        bloom_strength=t("bloom_strength"),
-        mass=t("mass"),
-    )
+    return params_from_leaves(
+        torch.tensor(np.asarray(get(path), np.float64), dtype=dtype, device=device)
+        for path in LEAF_PATHS)
 
 
 def scene_params(cfg: Config, device, dtype: Optional[torch.dtype] = None) -> SceneParams:
@@ -298,16 +326,36 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None) -> Scen
     leaves are numpy arrays (``camera.position``, ``disk.inner``, ...), such
     as the JAX package's ``SceneParams`` mapped through ``np.asarray``.
     ``dtype`` defaults to the leaves' own float dtype."""
-
-    def get(path):
-        obj = tree
-        for name in path.split("."):
-            obj = getattr(obj, name)
-        return obj
-
+    get = lambda path: _get(tree, path)
     if dtype is None:
         dtype = torch_dtype(str(np.asarray(get("mass")).dtype))
     return _params(get, device, dtype)
+
+
+def config_with_params(cfg: Config, params: SceneParams) -> Config:
+    """Write a (possibly fitted) SceneParams back into a Config — the
+    inverse of :func:`scene_params`. Static fields (resolution, flags, step
+    cap, dtype) are kept from ``cfg``."""
+    f = lambda v: float(v.detach())
+    t3 = lambda v: tuple(float(x) for x in v.detach().cpu().tolist())
+    camera = Camera(
+        position=t3(params.camera.position),
+        look_at=t3(params.camera.look_at),
+        up=t3(params.camera.up),
+        fov=f(params.camera.fov),
+    )
+    scene = dataclasses.replace(
+        cfg.scene,
+        disk_inner=f(params.disk.inner),
+        disk_outer=f(params.disk.outer),
+        disk_opacity=f(params.disk.opacity),
+        disk_color=t3(params.disk.color_hsi),
+        star_intensity=f(params.stars.intensity),
+        star_saturation=f(params.stars.saturation),
+        bloom_strength=f(params.bloom_strength),
+        mass=f(params.mass),
+    )
+    return Config(scene=scene, camera=camera)
 
 
 # ---------------------------------------------------------------------------

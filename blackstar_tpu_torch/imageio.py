@@ -1,4 +1,4 @@
-"""sRGB encoding and PNG output.
+"""sRGB encoding and decoding, PNG output and input.
 
 Reference semantics: per-channel sRGB gamma
 ``x < 0.0031308 ? 12.92·x : 1.055·x^(1/2.4) − 0.055`` followed by a clamp to
@@ -22,6 +22,13 @@ def srgb_encode(linear: torch.Tensor) -> torch.Tensor:
     # Guard pow against negatives (only the low branch is selected there).
     hi = 1.055 * torch.pow(torch.clamp(linear, min=0.0031308), 1.0 / 2.4) - 0.055
     return torch.where(linear < 0.0031308, lo, hi)
+
+
+def srgb_decode(srgb: torch.Tensor) -> torch.Tensor:
+    """sRGB gamma -> linear; the exact inverse of :func:`srgb_encode` (the
+    encode switch at linear 0.0031308 maps to sRGB 0.04045)."""
+    return torch.where(srgb <= 0.04045, srgb / 12.92,
+                       torch.pow((srgb + 0.055) / 1.055, 2.4))
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:

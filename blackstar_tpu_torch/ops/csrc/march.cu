@@ -43,7 +43,10 @@
 // The executed step count is the maximum over rays of the loop iterations
 // each ray ran (the iteration that classifies a ray counts; a truncated ray
 // counts max_steps), reduced per block and combined with one atomicMax. It
-// equals the plain march's `steps`.
+// equals the plain march's `steps`. When the caller passes a ray_steps
+// array, each ray also writes its count of advancing RK4 steps there (the
+// classifying iteration does no RK4 step): the work the frame needed, for
+// its operation count.
 //
 // Templated on float (the render path) and double (the on-card gate that
 // separates semantics from rounding).
@@ -96,7 +99,8 @@ march_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
              const T* __restrict__ vz0, int64_t n, MarchParams<T> P,
              T* __restrict__ out,           // (7, n): vx vy vz r g b a
              int32_t* __restrict__ status_out,  // (n,)
-             int32_t* __restrict__ steps_out) {  // (1,), zeroed by the caller
+             int32_t* __restrict__ steps_out,   // (1,), zeroed by the caller
+             int32_t* __restrict__ ray_steps) {  // (n,) or null
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int executed = 0;
   if (i < n) {
@@ -178,6 +182,7 @@ march_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
     out[5 * n + i] = ab;
     out[6 * n + i] = aa;
     status_out[i] = status;
+    if (ray_steps != nullptr) ray_steps[i] = status == kActive ? P.max_steps : k;
   }
 
   // Block maximum of the executed counts, then one atomic per block. Every
@@ -198,7 +203,7 @@ int launch(const void* vx, const void* vy, const void* vz, int64_t n,
            double h, double hh, double h6, double mass, double safe,
            double inner, double outer, double opacity, double disk_r, double disk_g, double disk_b,
            double p0x, double p0y, double p0z, int max_steps, int disk_on,
-           void* out, void* status, void* steps, void* stream) {
+           void* out, void* status, void* steps, void* ray_steps, void* stream) {
   MarchParams<T> P;
   P.h = T(h);
   P.hh = T(hh);
@@ -219,7 +224,7 @@ int launch(const void* vx, const void* vy, const void* vz, int64_t n,
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   march_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)vx, (const T*)vy, (const T*)vz, n, P, (T*)out,
-      (int32_t*)status, (int32_t*)steps);
+      (int32_t*)status, (int32_t*)steps, (int32_t*)ray_steps);
   return (int)cudaGetLastError();
 }
 
@@ -231,20 +236,20 @@ int bs_march_f32(const void* vx, const void* vy, const void* vz, int64_t n,
                  double h, double hh, double h6, double mass, double safe,
                  double inner, double outer, double opacity, double disk_r, double disk_g, double disk_b,
                  double p0x, double p0y, double p0z, int max_steps, int disk_on,
-                 void* out, void* status, void* steps, void* stream) {
+                 void* out, void* status, void* steps, void* ray_steps, void* stream) {
   return launch<float>(vx, vy, vz, n, h, hh, h6, mass, safe, inner, outer, opacity,
                        disk_r, disk_g, disk_b, p0x, p0y, p0z, max_steps,
-                       disk_on, out, status, steps, stream);
+                       disk_on, out, status, steps, ray_steps, stream);
 }
 
 int bs_march_f64(const void* vx, const void* vy, const void* vz, int64_t n,
                  double h, double hh, double h6, double mass, double safe,
                  double inner, double outer, double opacity, double disk_r, double disk_g, double disk_b,
                  double p0x, double p0y, double p0z, int max_steps, int disk_on,
-                 void* out, void* status, void* steps, void* stream) {
+                 void* out, void* status, void* steps, void* ray_steps, void* stream) {
   return launch<double>(vx, vy, vz, n, h, hh, h6, mass, safe, inner, outer, opacity,
                         disk_r, disk_g, disk_b, p0x, p0y, p0z, max_steps,
-                        disk_on, out, status, steps, stream);
+                        disk_on, out, status, steps, ray_steps, stream);
 }
 
 }  // extern "C"

@@ -12,6 +12,12 @@ Mirrors the reference flow (Raytracer.hs:53-75 + app/Main.hs:105-123):
 The device of the scene parameters decides the path: on a CUDA device the
 march is kernel B1 and the star lookup kernel B3; on the CPU both are their
 plain PyTorch versions. The kernel wrappers make that choice, nothing else.
+
+``differentiable=True`` is the training path: the march runs through
+``ops.march_diff`` (B1 forward, the adjoint B2 backward) and the stars
+through ``stars.diff`` (B3 forward, the star VJP B4 backward). The camera
+rays, the composite, ``supersample`` and ``safe_distance`` are plain tensor
+code that autograd differentiates as it is.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from blackstar_tpu_torch.config import Config, SceneParams, StaticConfig, apply_
 from blackstar_tpu_torch.geodesic import ACTIVE, ESCAPED, HORIZON, MarchResult
 from blackstar_tpu_torch.ops.filters import bloom, supersample
 from blackstar_tpu_torch.ops.march_cuda import march_cuda
+from blackstar_tpu_torch.ops.march_diff import march_diff
+from blackstar_tpu_torch.stars.diff import lookup_diff
 from blackstar_tpu_torch.stars.lookup_cuda import star_lookup_cuda
 
 
@@ -48,7 +56,8 @@ def safe_distance(params: SceneParams, dtype) -> torch.Tensor:
     return torch.maximum((50.0 * rs) ** 2, 2.0 * torch.dot(p, p))
 
 
-def shade(res: MarchResult, params: SceneParams, star_grid, dt) -> torch.Tensor:
+def shade(res: MarchResult, params: SceneParams, star_grid, dt,
+          differentiable: bool = False) -> torch.Tensor:
     """Composite the bottom layer under the accumulated disk RGBA.
 
     Bottom = celestial-sphere stars (alpha 1) for escaped rays, black for
@@ -56,7 +65,8 @@ def shade(res: MarchResult, params: SceneParams, star_grid, dt) -> torch.Tensor:
     at :34-37)."""
     escaped = res.status == ESCAPED
     if star_grid is not None:
-        star_rgb = star_lookup_cuda(
+        lookup = lookup_diff if differentiable else star_lookup_cuda
+        star_rgb = lookup(
             star_grid, res.vel,
             params.stars.intensity.to(dt), params.stars.saturation.to(dt),
             escaped,
@@ -68,22 +78,26 @@ def shade(res: MarchResult, params: SceneParams, star_grid, dt) -> torch.Tensor:
     return acc[:, :3] + bottom * (1.0 - acc[:, 3:4])
 
 
-def run_march(pos0, vel0, params: SceneParams, static: StaticConfig) -> MarchResult:
+def run_march(pos0, vel0, params: SceneParams, static: StaticConfig, *,
+              differentiable: bool = False) -> MarchResult:
     """March the rays: kernel B1 for rays on a CUDA device, the plain march
-    for rays on the CPU (``ops.march_cuda.march_cuda`` decides)."""
+    for rays on the CPU (``ops.march_cuda.march_cuda`` decides); with
+    ``differentiable`` through the autograd Function of ``ops.march_diff``."""
     safe = safe_distance(params, static.tdtype)
-    return march_cuda(pos0, vel0, params, static, safe)
+    march = march_diff if differentiable else march_cuda
+    return march(pos0, vel0, params, static, safe)
 
 
 def render(params: SceneParams, static: StaticConfig, star_grid=None, *,
-           with_stats: bool = False):
+           differentiable: bool = False, with_stats: bool = False):
     """Render the linear-RGB image (H, W, 3) on the parameters' device —
-    before bloom, like ``Raytracer.render``."""
+    before bloom, like ``Raytracer.render``. ``differentiable`` takes the
+    training path (module docstring)."""
     dt = static.tdtype
     rw, rh = static.render_width, static.render_height
     pos0, vel0 = generate_ray_components(params.camera, rw, rh, dtype=dt)
-    res = run_march(pos0, vel0, params, static)
-    img = shade(res, params, star_grid, dt).reshape(rh, rw, 3)
+    res = run_march(pos0, vel0, params, static, differentiable=differentiable)
+    img = shade(res, params, star_grid, dt, differentiable).reshape(rh, rw, 3)
     if static.supersampling:
         img = supersample(img)
     if with_stats:

@@ -38,7 +38,33 @@
 // grid that left max |diff| 6e-8 (mean 3e-12) in float32 and 1e-16 in
 // float64; the gates are mean 1e-6 and max 3e-2 (f32), 1e-9 (f64).
 //
-// Templated on float (the render path) and double (the on-card gate).
+// The same launch computes the unclamped sums when the caller asks (clamp
+// 0): the forward of the differentiable star stage, whose clamp is applied
+// outside, as ordinary autograd, as in blackstar_tpu/stars/diff.py:134-138.
+//
+// Star VJP (kernel B4), in the same file: the reverse of the unclamped sums,
+// one CUDA thread per ray. It replaces the JAX package's hand-derived star
+// VJP, StarGrid._slot_math's gradient mode (blackstar_tpu/stars/grid.py:377,
+// driven by the custom VJP of blackstar_tpu/stars/diff.py:74), an XLA stage
+// with no Pallas kernel; its plain PyTorch twin is StarGrid.lookup_vjp. Per
+// escaped ray it takes B3's cell id and row walk (the base row, then the used
+// octets of the overflow row behind the packed pointer) and, on each slot
+// inside the cutoff, accumulates the five gradient channels of the slot math
+// from the incoming cotangents (wr, wg, wb) of the unclamped sums:
+//   gd2 = I (sum_c w_c (1 + sat H_c)) (du/de) e (-1 / (2 w^2)),
+//   g_n -= 2 gd2 (star - n),  gI += u sum_c w_c (1 + sat H_c),
+//   gS += u I sum_c w_c H_c,
+// with du/de of u = min(1, e) equal to 1 below the cap, 0 above it and 0.5 at
+// an exact tie (lax.min's derivative, which the JAX gradients carry). It then
+// chains g_n through the normalisation n = v / |v| into d/d(vel) and writes
+// per-block sums of gI and gS (a fixed-order block reduction, no atomics),
+// which the wrapper sums. Rays that did not escape write zero gradients (their
+// output is the constant 0). What bounds it: the same gathered rows as B3,
+// with ~20 more operations per lit slot; the rows' load latency, as for B3
+// (`nvcc -Xptxas -v` on the card: float 32 registers with a 4-byte spill,
+// double 56 registers). Built with -fmad=false as B3 is.
+//
+// Templated on float (the training path) and double (the on-card gate).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -63,6 +89,7 @@ struct LookupParams {
   int k0;        // slots per base row
   int k1;        // slots per overflow row
   int fast_cells;
+  int clamp;     // B3: clamp each channel at 1 (the render), or not (training)
 };
 
 __device__ __forceinline__ void load_slot(const float* p, float (&s)[kRow]) {
@@ -182,22 +209,109 @@ star_lookup_kernel(const T* __restrict__ vx, const T* __restrict__ vy,
       accumulate(ovf_data + (int64_t)ptr * P.k1 * kRow, ovf_octets[ptr] * 8,
                  nx, ny, nz, P, ar, ag, ab);
     }
-    ar = fmin(ar, T(1));
-    ag = fmin(ag, T(1));
-    ab = fmin(ab, T(1));
+    if (P.clamp) {
+      ar = fmin(ar, T(1));
+      ag = fmin(ag, T(1));
+      ab = fmin(ab, T(1));
+    }
   }
   out[i] = ar;
   out[n + i] = ag;
   out[2 * n + i] = ab;
 }
 
+// Gradient mode of accumulate(): the five channels (gx, gy, gz) w.r.t. the
+// normalised direction, gi and gs, for the cotangents (wr, wg, wb).
 template <typename T>
-int launch(const void* vx, const void* vy, const void* vz, const void* active,
-           int64_t n, const void* cell_data, const void* ovf_data,
-           const void* ovf_octets, double intensity, double saturation,
-           double a, double r2lim, double inv2w2, double delta, int n_rings,
-           int n_cols, int k0, int k1, int fast_cells, void* out,
-           void* stream) {
+__device__ __forceinline__ void accumulate_vjp(const T* __restrict__ row, int slots,
+                                               T nx, T ny, T nz, T wr, T wg, T wb,
+                                               const LookupParams<T>& P, T& gx, T& gy,
+                                               T& gz, T& gi, T& gs) {
+  for (int k = 0; k < slots; ++k) {
+    T s[kRow];
+    load_slot(row + k * kRow, s);
+    const T dx = s[0] - nx;
+    const T dy = s[1] - ny;
+    const T dz = s[2] - nz;
+    const T d2 = dx * dx + dy * dy + dz * dz;
+    // Outside the cutoff e = 0: every channel's term is exactly 0.
+    if (d2 <= P.r2lim) {
+      const T logb0 = P.a * (T(kMaxBrightness) - s[3]);
+      const T e = exp(logb0 - d2 * P.inv2w2);
+      const T u = fmin(T(1), e);
+      const T cw = wr * (T(1) + P.saturation * s[4]) + wg * (T(1) + P.saturation * s[5]) +
+                   wb * (T(1) + P.saturation * s[6]);
+      const T hw = wr * s[4] + wg * s[5] + wb * s[6];
+      const T due = e < T(1) ? T(1) : (e == T(1) ? T(0.5) : T(0));
+      const T gd2 = (P.intensity * cw) * (due * e) * (-P.inv2w2);
+      gx = gx - T(2) * gd2 * dx;
+      gy = gy - T(2) * gd2 * dy;
+      gz = gz - T(2) * gd2 * dz;
+      gi = gi + u * cw;
+      gs = gs + (u * P.intensity) * hw;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+star_vjp_kernel(const T* __restrict__ vx, const T* __restrict__ vy,
+                const T* __restrict__ vz, const bool* __restrict__ active,
+                const T* __restrict__ w,  // (3, n) cotangents of the unclamped sums
+                int64_t n, const T* __restrict__ cell_data,
+                const T* __restrict__ ovf_data,
+                const int32_t* __restrict__ ovf_octets, LookupParams<T> P,
+                T* __restrict__ gvel,       // (3, n) out
+                T* __restrict__ partials) {  // (blocks, 2) out: gi, gs
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  T gi = T(0), gs = T(0);
+  if (i < n) {
+    T ox = T(0), oy = T(0), oz = T(0);
+    if (active[i]) {
+      const T x = vx[i], y = vy[i], z = vz[i];
+      const T inv = rsqrt_of(x * x + y * y + z * z);
+      const T nx = x * inv, ny = y * inv, nz = z * inv;
+      const T wr = w[i], wg = w[n + i], wb = w[2 * n + i];
+      T gx = T(0), gy = T(0), gz = T(0);
+      const T* row = cell_data + cell_id(nx, ny, nz, P) * P.k0 * kRow;
+      accumulate_vjp(row, P.k0, nx, ny, nz, wr, wg, wb, P, gx, gy, gz, gi, gs);
+      const int ptr = (int)row[7];
+      if (ptr > 0) {
+        accumulate_vjp(ovf_data + (int64_t)ptr * P.k1 * kRow, ovf_octets[ptr] * 8, nx, ny,
+                       nz, wr, wg, wb, P, gx, gy, gz, gi, gs);
+      }
+      // Through n = v / |v|: dn_i/dv_j = (delta_ij - n_i n_j) / |v|.
+      const T gdotn = gx * nx + gy * ny + gz * nz;
+      ox = (gx - nx * gdotn) * inv;
+      oy = (gy - ny * gdotn) * inv;
+      oz = (gz - nz * gdotn) * inv;
+    }
+    gvel[i] = ox;
+    gvel[n + i] = oy;
+    gvel[2 * n + i] = oz;
+  }
+
+  // Block sums of gi and gs in a fixed order; every thread reaches this.
+  __shared__ T warp_sum[kThreads / 32][2];
+  T v[2] = {gi, gs};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    T s = v[k];
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5][k] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    T s = warp_sum[0][threadIdx.x];
+    for (int q = 1; q < kThreads / 32; ++q) s += warp_sum[q][threadIdx.x];
+    partials[(int64_t)blockIdx.x * 2 + threadIdx.x] = s;
+  }
+}
+
+template <typename T>
+LookupParams<T> make_params(double intensity, double saturation, double a, double r2lim,
+                            double inv2w2, double delta, int n_rings, int n_cols, int k0,
+                            int k1, int fast_cells, int clamp) {
   LookupParams<T> P;
   P.intensity = T(intensity);
   P.saturation = T(saturation);
@@ -210,6 +324,35 @@ int launch(const void* vx, const void* vy, const void* vz, const void* active,
   P.k0 = k0;
   P.k1 = k1;
   P.fast_cells = fast_cells;
+  P.clamp = clamp;
+  return P;
+}
+
+template <typename T>
+int launch_vjp(const void* vx, const void* vy, const void* vz, const void* active,
+               const void* w, int64_t n, const void* cell_data, const void* ovf_data,
+               const void* ovf_octets, double intensity, double saturation, double a,
+               double r2lim, double inv2w2, double delta, int n_rings, int n_cols, int k0,
+               int k1, int fast_cells, void* gvel, void* partials, void* stream) {
+  const LookupParams<T> P = make_params<T>(intensity, saturation, a, r2lim, inv2w2, delta,
+                                           n_rings, n_cols, k0, k1, fast_cells, 0);
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  star_vjp_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)vx, (const T*)vy, (const T*)vz, (const bool*)active, (const T*)w, n,
+      (const T*)cell_data, (const T*)ovf_data, (const int32_t*)ovf_octets, P, (T*)gvel,
+      (T*)partials);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* vx, const void* vy, const void* vz, const void* active,
+           int64_t n, const void* cell_data, const void* ovf_data,
+           const void* ovf_octets, double intensity, double saturation,
+           double a, double r2lim, double inv2w2, double delta, int n_rings,
+           int n_cols, int k0, int k1, int fast_cells, int clamp, void* out,
+           void* stream) {
+  const LookupParams<T> P = make_params<T>(intensity, saturation, a, r2lim, inv2w2, delta,
+                                           n_rings, n_cols, k0, k1, fast_cells, clamp);
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   star_lookup_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)vx, (const T*)vy, (const T*)vz, (const bool*)active, n,
@@ -227,11 +370,11 @@ int bs_star_lookup_f32(const void* vx, const void* vy, const void* vz,
                        const void* ovf_data, const void* ovf_octets,
                        double intensity, double saturation, double a,
                        double r2lim, double inv2w2, double delta, int n_rings,
-                       int n_cols, int k0, int k1, int fast_cells, void* out,
+                       int n_cols, int k0, int k1, int fast_cells, int clamp, void* out,
                        void* stream) {
   return launch<float>(vx, vy, vz, active, n, cell_data, ovf_data, ovf_octets,
                        intensity, saturation, a, r2lim, inv2w2, delta, n_rings,
-                       n_cols, k0, k1, fast_cells, out, stream);
+                       n_cols, k0, k1, fast_cells, clamp, out, stream);
 }
 
 int bs_star_lookup_f64(const void* vx, const void* vy, const void* vz,
@@ -239,11 +382,33 @@ int bs_star_lookup_f64(const void* vx, const void* vy, const void* vz,
                        const void* ovf_data, const void* ovf_octets,
                        double intensity, double saturation, double a,
                        double r2lim, double inv2w2, double delta, int n_rings,
-                       int n_cols, int k0, int k1, int fast_cells, void* out,
+                       int n_cols, int k0, int k1, int fast_cells, int clamp, void* out,
                        void* stream) {
   return launch<double>(vx, vy, vz, active, n, cell_data, ovf_data, ovf_octets,
                         intensity, saturation, a, r2lim, inv2w2, delta, n_rings,
-                        n_cols, k0, k1, fast_cells, out, stream);
+                        n_cols, k0, k1, fast_cells, clamp, out, stream);
+}
+
+int bs_star_vjp_f32(const void* vx, const void* vy, const void* vz, const void* active,
+                    const void* w, int64_t n, const void* cell_data, const void* ovf_data,
+                    const void* ovf_octets, double intensity, double saturation, double a,
+                    double r2lim, double inv2w2, double delta, int n_rings, int n_cols,
+                    int k0, int k1, int fast_cells, void* gvel, void* partials,
+                    void* stream) {
+  return launch_vjp<float>(vx, vy, vz, active, w, n, cell_data, ovf_data, ovf_octets,
+                           intensity, saturation, a, r2lim, inv2w2, delta, n_rings, n_cols,
+                           k0, k1, fast_cells, gvel, partials, stream);
+}
+
+int bs_star_vjp_f64(const void* vx, const void* vy, const void* vz, const void* active,
+                    const void* w, int64_t n, const void* cell_data, const void* ovf_data,
+                    const void* ovf_octets, double intensity, double saturation, double a,
+                    double r2lim, double inv2w2, double delta, int n_rings, int n_cols,
+                    int k0, int k1, int fast_cells, void* gvel, void* partials,
+                    void* stream) {
+  return launch_vjp<double>(vx, vy, vz, active, w, n, cell_data, ovf_data, ovf_octets,
+                            intensity, saturation, a, r2lim, inv2w2, delta, n_rings, n_cols,
+                            k0, k1, fast_cells, gvel, partials, stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,9 @@ squared chordal distance (3w)² contribute
 summed over base and overflow slots and clamped to ≤ 1 per channel at the
 end. :meth:`StarGrid.lookup` is the plain PyTorch version; the kernel B3
 (``stars/csrc/star_lookup.cu``, wrapper ``stars/lookup_cuda.py``) computes
-the same per ray on the card.
+the same per ray on the card. :meth:`StarGrid.lookup_vjp` is the
+hand-derived reverse of the unclamped sums (the JAX package's
+``_slot_math`` gradient mode), the plain version of the kernel B4 beside B3.
 
 The on-disk form is the JAX package's v6 compact ``.npz`` (per-cell counts,
 CSR star ids, a deduplicated star-row table), so either package reads the
@@ -224,44 +226,79 @@ class StarGrid:
         color = 1.0 + saturation * s[..., 4:7]
         return (val[..., None] * color).sum(dim=1)
 
-    def _lookup_block(self, vel, intensity, saturation, active, consts):
+    def _slot_vjp(self, rows, nx, ny, nz, w, intensity, saturation, consts):
+        """Gradient mode of :meth:`_slot_sum` (the JAX package's
+        ``_slot_math`` with cotangent planes): per ray, the five channels
+        ``(gx, gy, gz, gI, gS)`` (m, 5) of ∂L/∂(normalised direction),
+        ∂L/∂intensity and ∂L/∂saturation, summed over the slots of gathered
+        rows (m, K·8), for the cotangents ``w`` (m, 3) of the unclamped
+        sums. ``du/de`` of ``u = min(1, e)`` is 1 below the cap, 0 above it
+        and 0.5 at an exact tie, as ``jax.grad`` through ``lax.min`` takes
+        it."""
+        a, r2lim, inv2w2 = consts
+        s = rows.reshape(rows.shape[0], -1, _ROW)
+        dx = s[..., 0] - nx[:, None]
+        dy = s[..., 1] - ny[:, None]
+        dz = s[..., 2] - nz[:, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        logb0 = a * (MAX_BRIGHTNESS - s[..., 3])
+        e = torch.exp(torch.where(d2 <= r2lim, logb0 - d2 * inv2w2,
+                                  torch.full_like(d2, -math.inf)))
+        u = torch.clamp(e, max=1.0)
+        hr, hg, hb = s[..., 4], s[..., 5], s[..., 6]
+        wr, wg, wb = (w[:, c:c + 1] for c in range(3))
+        # Σ_c w̄_c·(1 + sat·H_c) = ∂L/∂(I·u), and Σ_c w̄_c·H_c.
+        cw = wr * (1.0 + saturation * hr) + wg * (1.0 + saturation * hg) + wb * (1.0 + saturation * hb)
+        hw = wr * hr + wg * hg + wb * hb
+        due = torch.where(e < 1.0, 1.0, torch.where(e == 1.0, 0.5, 0.0)).to(e.dtype)
+        # ∂L/∂d² = I·cw·(du/de)·e·(−1/(2w²)); ∂d²/∂n_i = −2·d_i.
+        gd2 = (intensity * cw) * (due * e) * (-inv2w2)
+        return torch.stack([-(2.0 * gd2 * dx).sum(dim=1), -(2.0 * gd2 * dy).sum(dim=1),
+                            -(2.0 * gd2 * dz).sum(dim=1), (u * cw).sum(dim=1),
+                            ((u * intensity) * hw).sum(dim=1)], dim=-1)
+
+    def _rays(self, vel, active):
+        """Normalised directions (nx, ny, nz), ``1/|v|`` and the rows of a
+        batch: dead rays get a harmless probe direction (results zeroed by
+        the callers)."""
         dt = vel.dtype
         if active is not None:
-            # Dead rays get a harmless probe direction; zeroed at the end.
             vel = torch.where(active[:, None], vel, torch.ones((), dtype=dt, device=vel.device))
         vx, vy, vz = vel.unbind(-1)
         inv = torch.rsqrt(vx * vx + vy * vy + vz * vz)
         nx, ny, nz = vx * inv, vy * inv, vz * inv
-        cell = self.cell_ids(nx, ny, nz)
-
-        raw = self.cell_data[cell]  # grid dtype: the pointer column stays exact
-        acc = self._slot_sum(raw.to(dt), nx, ny, nz, intensity, saturation, consts)
+        raw = self.cell_data[self.cell_ids(nx, ny, nz)]  # grid dtype: the pointer column stays exact
         ptr = raw[:, 7].to(torch.int64)
         has = ptr > 0
         if active is not None:
             has = has & active
-        idx = torch.nonzero(has).squeeze(1)
+        return (nx, ny, nz), inv, raw.to(dt), ptr, torch.nonzero(has).squeeze(1)
+
+    def _lookup_block(self, vel, intensity, saturation, active, consts, clamp):
+        dt = vel.dtype
+        (nx, ny, nz), _, rows, ptr, idx = self._rays(vel, active)
+        acc = self._slot_sum(rows, nx, ny, nz, intensity, saturation, consts)
         if idx.numel():
             orow = self.ovf_data[ptr[idx]].to(dt)
             acc = acc.index_add(0, idx, self._slot_sum(
                 orow, nx[idx], ny[idx], nz[idx], intensity, saturation, consts))
-        out = torch.clamp(acc, max=1.0)
+        out = torch.clamp(acc, max=1.0) if clamp else acc
         if active is not None:
             out = torch.where(active[:, None], out, torch.zeros((), dtype=dt, device=out.device))
         return out
 
     def lookup(self, vel: torch.Tensor, intensity: torch.Tensor,
                saturation: torch.Tensor, active: Optional[torch.Tensor] = None,
-               chunk: int = 1 << 17) -> torch.Tensor:
+               chunk: int = 1 << 17, clamp: bool = True) -> torch.Tensor:
         """Star colour (N, 3) for ray directions ``vel`` (N, 3): the plain
         PyTorch ``starLookup`` (StarMap.hs:93-115), semantics of the JAX
         package's ``StarGrid._lookup_block``.
 
         Per ray: normalise by rsqrt, take the cell id, sum the base row's
         slots, then the overflow row's (through the pointer in base slot
-        0's aux column), clamp at 1, and zero where ``active`` is False.
-        Rays go in ``chunk``-sized batches so the gathered rows (K0·32 bytes
-        per ray in f32) stay bounded.
+        0's aux column), clamp at 1 (unless ``clamp`` is False), and zero
+        where ``active`` is False. Rays go in ``chunk``-sized batches so the
+        gathered rows (K0·32 bytes per ray in f32) stay bounded.
         """
         StarGrid.lookup.calls += 1
         dt = vel.dtype
@@ -275,10 +312,53 @@ class StarGrid:
         for s in range(0, n, chunk):
             act = None if active is None else active[s:s + chunk]
             parts.append(self._lookup_block(vel[s:s + chunk], intensity,
-                                            saturation, act, consts))
+                                            saturation, act, consts, clamp))
         return torch.cat(parts) if parts else torch.zeros((0, 3), dtype=dt, device=vel.device)
 
     lookup.calls = 0  # plain-path call count: shows which lookup a run took
+
+    def lookup_vjp(self, vel: torch.Tensor, intensity: torch.Tensor,
+                   saturation: torch.Tensor, active: torch.Tensor, w: torch.Tensor,
+                   chunk: int = 1 << 16):
+        """Reverse of the unclamped ``lookup(..., clamp=False)`` for the
+        cotangents ``w`` (N, 3): ``(∂L/∂vel (N, 3), ∂L/∂intensity,
+        ∂L/∂saturation)``. Written out by hand (the JAX package's
+        ``stars/diff.py`` backward): the five gradient channels of each slot
+        over the same base-row plus overflow-row walk as :meth:`lookup`,
+        then the chain through the normalisation ``n = v/|v|``,
+        ``∂n_i/∂v_j = (δ_ij − n_i n_j)/|v|``. Rays where ``active`` is False
+        have a constant zero output and get zero gradient. No gradient
+        reaches the grid's tables."""
+        StarGrid.lookup_vjp.calls += 1
+        dt = vel.dtype
+        n = vel.shape[0]
+        zero = torch.zeros((), dtype=dt, device=vel.device)
+        if self.n_stars == 0:
+            return torch.zeros((n, 3), dtype=dt, device=vel.device), zero, zero
+        consts = self.psf_constants(dt)
+        intensity = intensity.to(dt)
+        saturation = saturation.to(dt)
+        w = torch.where(active[:, None], w.to(dt), zero)
+        gvels = []
+        g_i = g_s = zero
+        for s in range(0, n, chunk):
+            act, ws = active[s:s + chunk], w[s:s + chunk]
+            (nx, ny, nz), inv, rows, ptr, idx = self._rays(vel[s:s + chunk], act)
+            g = self._slot_vjp(rows, nx, ny, nz, ws, intensity, saturation, consts)
+            if idx.numel():
+                orow = self.ovf_data[ptr[idx]].to(dt)
+                g = g.index_add(0, idx, self._slot_vjp(
+                    orow, nx[idx], ny[idx], nz[idx], ws[idx], intensity, saturation, consts))
+            gx, gy, gz, gi, gsat = g.unbind(-1)
+            gdotn = gx * nx + gy * ny + gz * nz
+            gvels.append(torch.stack([(gx - nx * gdotn) * inv, (gy - ny * gdotn) * inv,
+                                      (gz - nz * gdotn) * inv], dim=-1))
+            g_i = g_i + gi.sum()
+            g_s = g_s + gsat.sum()
+        gvel = torch.cat(gvels) if gvels else torch.zeros((0, 3), dtype=dt, device=vel.device)
+        return gvel, g_i, g_s
+
+    lookup_vjp.calls = 0  # plain-path call count
 
 
 @dataclass

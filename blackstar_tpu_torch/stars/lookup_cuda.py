@@ -1,13 +1,18 @@
-"""Wrapper of the per-ray star lookup kernel B3 (``csrc/star_lookup.cu``).
+"""Wrappers of the per-ray star lookup kernel B3 and the star VJP kernel
+B4 (both in ``csrc/star_lookup.cu``).
 
-The kernel computes :meth:`blackstar_tpu_torch.stars.grid.StarGrid.lookup`
-(its plain PyTorch twin) per ray on the card; it stands for the JAX
-package's XLA star stage ``blackstar_tpu/stars/grid.py::StarGrid._lookup_block``,
-which has no Pallas kernel. See the source's header for what bounds it.
+B3 computes :meth:`blackstar_tpu_torch.stars.grid.StarGrid.lookup` (its
+plain PyTorch twin) per ray on the card; it stands for the JAX package's
+XLA star stage ``blackstar_tpu/stars/grid.py::StarGrid._lookup_block``,
+which has no Pallas kernel. B4 computes :meth:`StarGrid.lookup_vjp`, the
+reverse of the unclamped sums; it stands for the JAX package's
+hand-derived star VJP (``StarGrid._slot_math`` gradient mode, driven by
+``blackstar_tpu/stars/diff.py``). See the source's header for what bounds
+them.
 
-:func:`star_lookup_cuda` takes the plain path for rays on the CPU, launches
-the kernel for rays on a CUDA device, and raises for anything else. It never
-falls back from the kernel to the plain version.
+Each wrapper takes the plain path for rays on the CPU, launches its kernel
+for rays on a CUDA device, and raises for anything else. It never falls
+back from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -30,64 +35,79 @@ FLAGS = ("-fmad=false",)
 
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = ([_P, _P, _P, _P, ctypes.c_int64, _P, _P, _P] + [_D] * 6
-             + [_I] * 5 + [_P, _P])
+             + [_I] * 6 + [_P, _P])
+_VJP_ARGTYPES = ([_P, _P, _P, _P, _P, ctypes.c_int64, _P, _P, _P] + [_D] * 6
+                 + [_I] * 5 + [_P, _P, _P])
 _ENTRY = {torch.float32: "bs_star_lookup_f32", torch.float64: "bs_star_lookup_f64"}
+_VJP_ENTRY = {torch.float32: "bs_star_vjp_f32", torch.float64: "bs_star_vjp_f64"}
+THREADS = 128  # threads per block (kThreads in the source)
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     """Compile (at first use) and load the kernel library."""
     lib = _build.load(SOURCE, FLAGS)
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for entries, argtypes in ((_ENTRY, _ARGTYPES), (_VJP_ENTRY, _VJP_ARGTYPES)):
+        for name in entries.values():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def star_lookup_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
-                     saturation: torch.Tensor,
-                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Star colour (N, 3) for ray directions ``vel`` (N, 3): kernel B3 on a
-    CUDA device, :meth:`StarGrid.lookup` on the CPU. ``active`` (N,) bool
-    marks the escaped rays; the others get 0. The kernel's result is an
-    (N, 3) view of its plane-major output."""
-    dev = vel.device
-    if dev.type == "cpu":
-        return grid.lookup(vel, intensity, saturation, active)
-    if dev.type != "cuda":
-        raise ValueError(f"star_lookup_cuda: unsupported device {dev}")
-
-    dt = vel.dtype
-    n = vel.shape[0]
+def _checked(grid: StarGrid, vel: torch.Tensor, active: Optional[torch.Tensor], what: str):
+    """Validate the rays and the grid for a launch; returns the direction
+    planes (3, N) and the (N,) bool mask."""
+    dev, dt, n = vel.device, vel.dtype, vel.shape[0]
     if vel.shape != (n, 3):
-        raise ValueError(f"star_lookup_cuda: vel must be (N, 3), got {tuple(vel.shape)}")
+        raise ValueError(f"{what}: vel must be (N, 3), got {tuple(vel.shape)}")
     if grid.dtype != dt or grid.device != dev:
-        raise ValueError(f"star_lookup_cuda: grid is {grid.dtype} on {grid.device}, "
+        raise ValueError(f"{what}: grid is {grid.dtype} on {grid.device}, "
                          f"rays are {dt} on {dev}")
     planes = vel.t().contiguous()  # no copy for the march's plane-major output
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=dev)
     if active.shape != (n,) or active.dtype != torch.bool or active.device != dev:
-        raise ValueError("star_lookup_cuda: active must be an (N,) bool tensor on the rays' device")
-    active = active.contiguous()
+        raise ValueError(f"{what}: active must be an (N,) bool tensor on the rays' device")
     tables = (grid.cell_data, grid.ovf_data, grid.ovf_octets)
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tables):
-        raise ValueError("star_lookup_cuda: grid tables must be contiguous and 16-byte aligned")
+        raise ValueError(f"{what}: grid tables must be contiguous and 16-byte aligned")
+    return planes, active.contiguous()
 
+
+def _grid_args(grid: StarGrid, dt, intensity, saturation):
+    """The kernels' grid and shading arguments after the ray pointers."""
+    a, r2lim, inv2w2 = grid.psf_constants(dt)
+    shading = torch.stack([intensity.to(dt), saturation.to(dt)]).tolist()  # one sync
+    return ((grid.cell_data.data_ptr(), grid.ovf_data.data_ptr(), grid.ovf_octets.data_ptr(),
+             *shading, a, r2lim, inv2w2, math.pi / grid.n_rings),
+            (grid.n_rings, grid.n_cols, grid.pad_k, grid.ovf_data.shape[1] // 8,
+             int(grid.fast_cells_ok(dt))))
+
+
+def star_lookup_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
+                     saturation: torch.Tensor,
+                     active: Optional[torch.Tensor] = None, clamp: bool = True) -> torch.Tensor:
+    """Star colour (N, 3) for ray directions ``vel`` (N, 3): kernel B3 on a
+    CUDA device, :meth:`StarGrid.lookup` on the CPU. ``active`` (N,) bool
+    marks the escaped rays; the others get 0. ``clamp=False`` returns the
+    unclamped sums. The kernel's result is an (N, 3) view of its
+    plane-major output."""
+    dev = vel.device
+    if dev.type == "cpu":
+        return grid.lookup(vel, intensity, saturation, active, clamp=clamp)
+    if dev.type != "cuda":
+        raise ValueError(f"star_lookup_cuda: unsupported device {dev}")
+
+    dt, n = vel.dtype, vel.shape[0]
+    planes, active = _checked(grid, vel, active, "star_lookup_cuda")
     if not (n and grid.n_stars):
         return torch.zeros((n, 3), dtype=dt, device=dev)
     out = torch.empty((3, n), dtype=dt, device=dev)  # the kernel writes every element
-    a, r2lim, inv2w2 = grid.psf_constants(dt)
-    shading = torch.stack([intensity.to(dt), saturation.to(dt)]).tolist()  # one sync
+    tables, ints = _grid_args(grid, dt, intensity, saturation)
     fn = getattr(build(), _ENTRY[dt])
     code = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-              active.data_ptr(), n,
-              grid.cell_data.data_ptr(), grid.ovf_data.data_ptr(),
-              grid.ovf_octets.data_ptr(),
-              *shading, a, r2lim, inv2w2, math.pi / grid.n_rings,
-              grid.n_rings, grid.n_cols, grid.pad_k,
-              grid.ovf_data.shape[1] // 8, int(grid.fast_cells_ok(dt)),
+              active.data_ptr(), n, *tables, *ints, int(clamp),
               out.data_ptr(), _build.stream_handle(dev))
     _build.check(code, "star lookup kernel")
     star_lookup_cuda.launches += 1
@@ -95,3 +115,40 @@ def star_lookup_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
 
 
 star_lookup_cuda.launches = 0  # kernel launches: shows the render went through B3
+
+
+def star_lookup_vjp_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
+                         saturation: torch.Tensor, active: torch.Tensor, w: torch.Tensor):
+    """Reverse of the unclamped lookup for the cotangents ``w`` (N, 3):
+    ``(∂L/∂vel (N, 3), ∂L/∂intensity, ∂L/∂saturation)``. Kernel B4 on a
+    CUDA device, :meth:`StarGrid.lookup_vjp` on the CPU. The kernel's
+    ``vel`` gradient is an (N, 3) view of its plane-major output."""
+    dev = vel.device
+    if dev.type == "cpu":
+        return grid.lookup_vjp(vel, intensity, saturation, active, w)
+    if dev.type != "cuda":
+        raise ValueError(f"star_lookup_vjp_cuda: unsupported device {dev}")
+
+    dt, n = vel.dtype, vel.shape[0]
+    planes, active = _checked(grid, vel, active, "star_lookup_vjp_cuda")
+    if w.shape != (n, 3) or w.device != dev:
+        raise ValueError(f"star_lookup_vjp_cuda: w must be (N, 3) on the rays' device, "
+                         f"got {tuple(w.shape)} on {w.device}")
+    zero = torch.zeros((), dtype=dt, device=dev)
+    if not (n and grid.n_stars):
+        return torch.zeros((n, 3), dtype=dt, device=dev), zero, zero
+    wp = w.t().to(dt).contiguous()
+    gvel = torch.empty((3, n), dtype=dt, device=dev)
+    partials = torch.empty((-(-n // THREADS), 2), dtype=dt, device=dev)
+    tables, ints = _grid_args(grid, dt, intensity, saturation)
+    fn = getattr(build(), _VJP_ENTRY[dt])
+    code = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
+              active.data_ptr(), wp.data_ptr(), n, *tables, *ints,
+              gvel.data_ptr(), partials.data_ptr(), _build.stream_handle(dev))
+    _build.check(code, "star VJP kernel")
+    star_lookup_vjp_cuda.launches += 1
+    g = partials.sum(dim=0)
+    return gvel.t(), g[0], g[1]
+
+
+star_lookup_vjp_cuda.launches = 0  # kernel launches: shows the backward went through B4

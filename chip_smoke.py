@@ -22,17 +22,38 @@ phase exits non-zero):
    times of the render, each kernel and each plain version at the frame's
    shapes, with each kernel held to its plain version there too;
 6. a float64 64×36 render through the kernels against the committed
-   float64-oracle golden at 1e-7.
+   float64-oracle golden at 1e-7;
+7. the march adjoint kernel B2 against the plain hand-derived adjoint on the
+   card, default scene at 480×270 with seeded random cotangents, in float64
+   and float32;
+8. the star VJP kernel B4 against the plain star VJP, the full 470k-star
+   grid and the escaped rays of the 1920×1080 frame with seeded random
+   cotangents, in float64 and float32;
+9. the training slice: the fit CLI on ``scenes/default.yaml`` at 1920×1080
+   in float32 with the 470k-star sky, fitting ``disk.outer`` for 5 Adam
+   steps to a target rendered with ``diskOuter`` 12.5; all four kernels
+   must carry it (launch counts > 0, plain call counts 0), every loss
+   finite, the loss falling and ``disk.outer`` moving toward 12.5;
+10. times at the 1080p training shapes: a warm training step with every
+   leaf trainable (forward, forward + backward, the whole step), its
+   device-time profile and peak memory, and B2 and B4 (kernel, wrapper,
+   plain version, each kernel held to its plain version there).
 
 The last two lines of stdout are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``. Per kernel, ``ms`` is the wrapper's time
-per call as the render calls it (CUDA events), ``kernel_ms`` the kernel's
-own device time (torch.profiler), and ``plain_ms`` the plain version's wall
-time per call, all at the 1080p frame's shapes.
+per call as the main path calls it (CUDA events), ``kernel_ms`` the
+kernel's own device time (torch.profiler), ``plain_ms`` the plain version's
+wall time per call, all at the 1080p shapes; ``launches`` the count in the
+fit CLI's run (``launches_render``: in the render CLI's run); ``bound_ms``
+the least time the card could take for the same work on this run's data
+(the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
+float32 without tensor cores).
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import glob
 import io
 import json
@@ -114,6 +135,52 @@ def _kernel_ms(fn, kernel_name, reps):
     return total / reps / 1e3
 
 
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes per
+# second, and float32 operations per second outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# Operations per advancing RK4 step of the march (march.cu, one per
+# multiply, add, divide or square root): four accelerations (7 each, plus 5
+# for the stage r^2 of three of them), six stage vectors (36), the new
+# position and velocity (42), the new r^2 (5) and the two classification
+# compares: 128. The disk filter and the rare crossings are left out.
+MARCH_OPS_PER_STEP = 128
+# The adjoint per advancing step: one forward step (128), the RK4 VJP
+# proper (four symmetric-Jacobian applications of 28 and 66 to combine
+# them: 178) and the carry update (4). The kernel's second replay and its
+# stage recomputation are its own choices, not the function's work.
+ADJOINT_OPS_PER_STEP = 310
+# Operations per candidate slot scanned by the star kernels: the
+# difference (3), d^2 (5) and the cutoff compare (1). The PSF of the few
+# slots inside the cutoff is left out.
+STAR_OPS_PER_SLOT = 9
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _star_work(grid, vel, escaped):
+    """What a star kernel must touch for these rays: the distinct base rows
+    and the used octets of the distinct overflow rows of the escaped rays'
+    cells (bytes), and the candidate slots the rays scan."""
+    v = vel[escaped]
+    n = torch.nn.functional.normalize(v, dim=-1)
+    cells = grid.cell_ids(n[:, 0], n[:, 1], n[:, 2])
+    ptr = grid.cell_data[cells, 7].long()
+    octs = grid.ovf_octets.long()
+    uniq_cells = torch.unique(cells)
+    uniq_ptr = torch.unique(ptr[ptr > 0])
+    esz = grid.cell_data.element_size()
+    table_bytes = (uniq_cells.numel() * grid.cell_data.shape[1]
+                   + int(octs[uniq_ptr].sum()) * 64) * esz
+    slots = v.shape[0] * grid.pad_k + int((octs[ptr] * 8).sum())
+    return table_bytes, slots
+
+
 def _check_march(ker, ref, dtype):
     """Hold B1's result to the plain march's; returns (max RGBA error,
     status mismatch fraction)."""
@@ -165,6 +232,89 @@ def _check_stars(ker, ref, dtype):
     return max_err
 
 
+def _adjoint_args(params, static):
+    """The scene inputs of the march adjoint, as the training path gives them."""
+    from blackstar_tpu_torch.color import hsi_to_rgb
+    from blackstar_tpu_torch.render import safe_distance
+
+    dt = static.tdtype
+    disk = params.disk
+    return dict(mass=params.mass.to(dt), inner=disk.inner.to(dt), outer=disk.outer.to(dt),
+                opacity=disk.opacity.to(dt), disk_rgb=hsi_to_rgb(disk.color_hsi.to(dt)),
+                safe=safe_distance(params, dt))
+
+
+def _close_enough(what, got, want, rtol, atol_rel):
+    """|got − want| ≤ atol_rel·max|want| + rtol·|want| elementwise; returns
+    the max abs error."""
+    err = (got - want).abs()
+    limit = atol_rel * want.abs().max() + rtol * want.abs()
+    if not bool((err <= limit).all()):
+        worst = int(torch.argmax(err - limit))
+        raise AssertionError(f"{what}: |d| {err.flatten()[worst].item():.3g} at {worst} above "
+                             f"{limit.flatten()[worst].item():.3g} (value "
+                             f"{want.flatten()[worst].item():.6g})")
+    return err.max().item()
+
+
+def _check_adjoint(ker, ref, fwd_status, dtype):
+    """Hold B2's gradients to the plain adjoint's: per ray on the rays whose
+    replayed status agrees, and the 10 scalar partials. B2's replay must
+    classify every ray as the forward kernel B1 did. Returns the max error
+    of the per-ray gradients."""
+    if not torch.equal(ker.status, fwd_status):
+        raise AssertionError("B2's replayed statuses differ from B1's forward statuses")
+    mismatch = ker.status != ref.status
+    frac = mismatch.float().mean().item()
+    ok = ~mismatch
+    gk, gr = ker.vel0[ok], ref.vel0[ok]
+    scalars = ("pos0", "mass", "inner", "outer", "opacity", "disk_rgb")
+    if dtype == "float64":  # tests/test_march_adjoint.py's rtol, floor 1e-12·max|g|
+        if frac > 1e-4:
+            raise AssertionError(f"float64 status mismatch {frac:.3g} > 1e-4")
+        rtol, atol_rel = 1e-9, 1e-12
+    else:  # tests/test_march_adjoint_pallas.py's gate; B1's 2% status gate
+        if frac >= 0.02:
+            raise AssertionError(f"float32 status mismatch {frac:.3g} >= 0.02")
+        rtol, atol_rel = 2e-4, 2e-5 / max(gr.abs().max().item(), 1e-30)
+    err = _close_enough(f"{dtype} vel0 gradient", gk, gr, rtol, atol_rel)
+    rel = {}
+    for name in scalars:
+        k, r = getattr(ker, name).double(), getattr(ref, name).double()
+        _close_enough(f"{dtype} {name} gradient", k, r, rtol,
+                      1e-12 if dtype == "float64" else 2e-5 / max(r.abs().max().item(), 1e-30))
+        rel[name] = ((k - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+    print(f"  {dtype}: {ref.status.numel()} rays, status mismatches {int(mismatch.sum())}, "
+          f"max |d vel0| {err:.3g} (max |vel0 grad| {gr.abs().max().item():.3g}); "
+          "scalar rel. errors " + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()))
+    print("    scalars (kernel): " + ", ".join(
+        f"{k} {getattr(ker, k).double().cpu().numpy().round(6).tolist()}" for k in scalars))
+    return err
+
+
+def _check_star_vjp(ker, ref, dtype, n_escaped):
+    """Hold B4's gradients to the plain star VJP's: per plane, B3's gates
+    scaled by the output's largest magnitude; the two scalar sums (over
+    ~2M rays, summed in other orders) at 1e-9 (f64) and 1e-4 (f32)
+    relative. Returns the max error of the per-ray gradients."""
+    gk, gr = ker[0], ref[0]
+    scale = gr.abs().max().item()
+    d = (gk - gr).abs()
+    max_err, mean_err = d.max().item(), d.mean().item()
+    rel = [abs((k - r).item()) / max(abs(r.item()), 1e-30) for k, r in zip(ker[1:], ref[1:])]
+    print(f"  {dtype}: {gr.shape[0]} rays ({n_escaped} escaped), max |g vel| {scale:.3g}, "
+          f"max |d| {max_err:.3g}, mean |d| {mean_err:.3g}; dI rel {rel[0]:.3g}, "
+          f"dS rel {rel[1]:.3g} (dI {ref[1].item():.6g}, dS {ref[2].item():.6g})")
+    if scale == 0 or ref[1].item() == 0:
+        raise AssertionError("no star gradient flowed")
+    if dtype == "float64":
+        if max_err > 1e-9 * scale or max(rel) > 1e-9:
+            raise AssertionError("float64 star gradients differ")
+    elif mean_err > 1e-6 * scale or max_err > 3e-2 * scale or max(rel) > 1e-4:
+        raise AssertionError("float32 star gradients differ")
+    return max_err
+
+
 def main():
     # ---- 1. the card --------------------------------------------------
     _banner("1. card")
@@ -174,11 +324,18 @@ def main():
     os.chdir(ROOT)
     from blackstar_tpu_torch import geodesic
     from blackstar_tpu_torch.camera import generate_ray_components
+    import yaml
+
+    from blackstar_tpu_torch.cli import fit as cli_fit
     from blackstar_tpu_torch.cli import render as cli_render
+    from blackstar_tpu_torch.fit import image_loss, init_train_state, make_train_step
     from blackstar_tpu_torch.geodesic import ESCAPED
-    from blackstar_tpu_torch.imageio import read_png
+    from blackstar_tpu_torch.imageio import encode_rgb8, read_png, write_png
+    from blackstar_tpu_torch.ops import _build
+    from blackstar_tpu_torch.ops import march_adjoint_cuda as b2
     from blackstar_tpu_torch.ops import march_cuda as b1
     from blackstar_tpu_torch.ops.filters import bloom
+    from blackstar_tpu_torch.ops.march_vjp import march_adjoint_reference
     from blackstar_tpu_torch.render import render, render_image, safe_distance
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.artifact import ensure_star_grid
@@ -193,11 +350,20 @@ def main():
     print(card)
 
     # ---- 2. build ------------------------------------------------------
+    # One nvcc per source, all started together; beside them the same
+    # sources with `-Xptxas -v` for the registers and spills of each kernel.
     _banner("2. build")
-    for name, mod in (("B1 march", b1), ("B3 star lookup", b3)):
-        t0 = time.perf_counter()
-        mod.build()
-        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    jobs = {"B1 march": b1.build, "B2 march adjoint": b2.build,
+            "B3 star lookup + B4 star VJP": b3.build}
+    jobs.update({f"ptxas -v {os.path.basename(m.SOURCE)}":
+                 functools.partial(_build.load, m.SOURCE, m.FLAGS + ("-Xptxas", "-v"))
+                 for m in (b1, b2, b3)})
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in jobs.items()}
+        for name, fut in futures.items():
+            fut.result()
+    print(f"  {len(jobs)} builds in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. B1 against the plain march, 480×270 ------------------------
     _banner("3. B1 march kernel vs plain march, default scene 480x270")
@@ -303,6 +469,14 @@ def main():
     b1_kernel_ms = _kernel_ms(lambda: b1.march_cuda(pos0, planes, params, static, safe),
                               "march_kernel", 10)
     march_ms = _host_ms(lambda: geodesic.march(pos0, stacked, params, static, safe), 2)
+    n_rays = 1920 * 1080
+    ray_steps = torch.empty((n_rays,), dtype=torch.int32, device=dev)
+    b1.march_cuda(pos0, planes, params, static, safe, ray_steps=ray_steps)
+    frame_steps = int(ray_steps.sum())
+    # 3 direction planes in; velocity, RGBA (7 planes) and status out.
+    b1_bound = _bound(n_rays * (10 * 4 + 4), frame_steps * MARCH_OPS_PER_STEP)
+    print(f"  B1 work: {frame_steps} advancing ray-steps ({frame_steps / n_rays:.1f} per ray), "
+          f"bound {b1_bound[0]:.3f} ms by {b1_bound[1]}")
 
     escaped = ker.status == ESCAPED
     inten, sat = params.stars.intensity, params.stars.saturation
@@ -315,6 +489,13 @@ def main():
     b3_kernel_ms = _kernel_ms(lambda: b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped),
                               "star_lookup_kernel", 10)
     lookup_ms = _host_ms(lambda: grid32.lookup(ker.vel, inten, sat, escaped), 2)
+    n_escaped = int(escaped.sum())
+    star_table_bytes, star_slots = _star_work(grid32, ker.vel, escaped)
+    # Escaped rays' directions, the mask, the rows they need; 3 planes out.
+    b3_bound = _bound(star_table_bytes + n_escaped * 12 + n_rays + n_rays * 12,
+                      star_slots * STAR_OPS_PER_SLOT)
+    print(f"  B3 work: {star_table_bytes / 2**20:.1f} MiB of distinct table rows, "
+          f"{star_slots} slots scanned, bound {b3_bound[0]:.3f} ms by {b3_bound[1]}")
 
     def plain_frame():
         """The same frame through the plain march and plain lookup."""
@@ -355,18 +536,214 @@ def main():
     print(f"  max |d| vs {os.path.relpath(goldens[0], ROOT)}: {gold_err:.3g} (limit 1e-7)")
     torch.testing.assert_close(img, want, rtol=0, atol=1e-7)
 
+    # ---- 7. B2 against the plain adjoint, 480×270 ----------------------
+    _banner("7. B2 march adjoint kernel vs plain adjoint, default scene 480x270")
+    rng = np.random.default_rng(7)
+    n_small = 480 * 270
+    cot_np = (rng.normal(size=(n_small, 4)), rng.normal(size=(n_small, 3)))
+    for dtype in ("float64", "float32"):
+        cfg = _scene(480, 270, dtype)
+        params, static = cfg.params(dev), cfg.static()
+        dt = static.tdtype
+        pos0, planes = generate_ray_components(params.camera, 480, 270, dtype=dt)
+        kw = _adjoint_args(params, static)
+        fwd = b1.march_cuda(pos0, planes, params, static, kw["safe"])
+        cot_acc, cot_vel = (torch.from_numpy(c).to(dev, dt) for c in cot_np)
+        ker = b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static, **kw)
+        ref = march_adjoint_reference(pos0, torch.stack(planes, dim=-1), h=static.step_size,
+                                      max_steps=static.max_steps, disk_on=static.disk_on,
+                                      cot_acc=cot_acc, cot_vel=cot_vel, **kw)
+        torch.cuda.synchronize()
+        _check_adjoint(ker, ref, fwd.status, dtype)
+        del ker, ref, fwd
+
+    # ---- 8. B4 against the plain star VJP, full grid, 1080p escapes ----
+    _banner("8. B4 star VJP kernel vs plain star VJP, 470k-star grid, 1920x1080 escaped rays")
+    w_np = np.random.default_rng(8).normal(size=(n_rays, 3))
+    for dtype in ("float64", "float32"):
+        cfg = _scene(1920, 1080, dtype)
+        params, static = cfg.params(dev), cfg.static()
+        dt = static.tdtype
+        grid = grid32 if dtype == "float32" else compact.to_grid(dev, dtype=dt)
+        pos0, planes = generate_ray_components(params.camera, 1920, 1080, dtype=dt)
+        res = b1.march_cuda(pos0, planes, params, static, safe_distance(params, dt))
+        esc = res.status == ESCAPED
+        w = torch.from_numpy(w_np).to(dev, dt)
+        inten, sat = params.stars.intensity, params.stars.saturation
+        ker = b3.star_lookup_vjp_cuda(grid, res.vel, inten, sat, esc, w)
+        ref = grid.lookup_vjp(res.vel, inten, sat, esc, w)
+        torch.cuda.synchronize()
+        _check_star_vjp(ker, ref, dtype, int(esc.sum()))
+        del grid, res, ker, ref
+        torch.cuda.empty_cache()
+
+    # ---- 9. the training slice through the fit CLI ---------------------
+    _banner("9. training slice: fit CLI, scenes/default.yaml 1920x1080 float32, "
+            "470k-star sky, disk.outer 13 -> target 12.5")
+    fit_dir = os.path.join(ROOT, "build", "chip_smoke_fit")  # gitignored
+    os.makedirs(fit_dir, exist_ok=True)
+    try:
+        cfg_t = _scene(1920, 1080, "float32", disk_outer=12.5)
+        target_img = render(cfg_t.params(dev), cfg_t.static(), grid32)  # before bloom
+        target_png = os.path.join(fit_dir, "target.png")
+        write_png(encode_rgb8(target_img).cpu().numpy(), target_png)
+        out_yaml = os.path.join(fit_dir, "fitted.yaml")
+        b1.march_cuda.launches = b2.march_adjoint_cuda.launches = 0
+        b3.star_lookup_cuda.launches = b3.star_lookup_vjp_cuda.launches = 0
+        geodesic.march.calls = march_adjoint_reference.calls = 0
+        StarGrid.lookup.calls = StarGrid.lookup_vjp.calls = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_fit.main([os.path.join("scenes", "default.yaml"), target_png,
+                               "--fit", "disk.outer", "--steps", "5", "--lr", "0.05",
+                               "--starmap", grid_path, "--force", "-o", out_yaml])
+        fit_s = time.perf_counter() - t0
+        fit_launches = {"b1": b1.march_cuda.launches, "b2": b2.march_adjoint_cuda.launches,
+                        "b3": b3.star_lookup_cuda.launches,
+                        "b4": b3.star_lookup_vjp_cuda.launches}
+        fit_plain = {"march": geodesic.march.calls, "adjoint": march_adjoint_reference.calls,
+                     "lookup": StarGrid.lookup.calls, "star_vjp": StarGrid.lookup_vjp.calls}
+        text = log.getvalue()
+        print("  | " + text.strip().replace("\n", "\n  | "))
+        print(f"  fit CLI run {fit_s:.1f} s (cold: includes loading the star tables), rc {rc}, "
+              f"kernel launches {fit_launches}, plain calls {fit_plain}")
+        if rc != 0:
+            raise AssertionError(f"fit CLI returned {rc}")
+        if min(fit_launches.values()) < 1 or max(fit_plain.values()) != 0:
+            raise AssertionError("the fit did not go through the four kernels alone")
+        losses = [float(v) for v in re.findall(r"step\s+\d+/\d+\s+loss (\S+)", text)]
+        fitted_outer = yaml.safe_load(open(out_yaml))["scene"]["diskOuter"]
+        print(f"  losses {losses}; disk.outer 13 -> {fitted_outer} (target 12.5)")
+        if len(losses) != 5 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        if not abs(fitted_outer - 12.5) < 0.5:
+            raise AssertionError(f"disk.outer did not move toward 12.5: {fitted_outer}")
+    finally:
+        shutil.rmtree(fit_dir)
+
+    # ---- 10. training-step times at the 1080p shapes -------------------
+    _banner("10. times at the 1920x1080 float32 training shapes")
+    cfg = _scene(1920, 1080, "float32")
+    params, static = cfg.params(dev), cfg.static()
+    dt = static.tdtype
+    state = init_train_state(params, 1e-3)  # every leaf trainable
+    step_fn = make_train_step(static, grid32)
+
+    def forward():
+        return image_loss(state.params, static, target_img, grid32)
+
+    def forward_backward():
+        forward().backward()
+        state.optimizer.zero_grad(set_to_none=True)
+
+    fwd_ms = _host_ms(forward, 3)
+    fwd_bwd_ms = _host_ms(forward_backward, 3)
+    step_ms = _host_ms(lambda: step_fn(state, target_img), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn(state, target_img)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step_fn(state, target_img)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 2e3
+    busy_ms = sum(by_kernel.values())
+    print(f"  training step (all 12 leaves trainable): forward {fwd_ms:.3f} ms, forward + "
+          f"backward {fwd_bwd_ms:.3f} ms, whole step {step_ms:.3f} ms; peak allocated "
+          f"{peak_mib:.0f} MiB  [{card}]")
+    print(f"  profile of a step: device busy {busy_ms:.3f} ms, wall {prof_wall_ms:.3f} ms "
+          f"under the profiler (idle share {1 - busy_ms / prof_wall_ms:.3f}); by kernel:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"    {ms:9.3f} ms  {name[:100]}")
+
+    pos0, planes = generate_ray_components(params.camera, 1920, 1080, dtype=dt)
+    kw = _adjoint_args(params, static)
+    fwd = b1.march_cuda(pos0, planes, params, static, kw["safe"])
+    rng = np.random.default_rng(10)
+    cot_acc = torch.from_numpy(rng.normal(size=(n_rays, 4))).to(dev, dt)
+    cot_vel = torch.from_numpy(rng.normal(size=(n_rays, 3))).to(dev, dt)
+
+    def b2_call():
+        return b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static, **kw)
+
+    ker = b2_call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = march_adjoint_reference(pos0, torch.stack(planes, dim=-1), h=static.step_size,
+                                  max_steps=static.max_steps, disk_on=static.disk_on,
+                                  cot_acc=cot_acc, cot_vel=cot_vel, **kw)
+    torch.cuda.synchronize()
+    adjoint_ms = (time.perf_counter() - t0) * 1e3
+    print("  B2 at the training shape (seeded random cotangents):")
+    b2_err = _check_adjoint(ker, ref, fwd.status, "float32")
+    del ker, ref
+    b2_ms = _cuda_ms(b2_call, 5)
+    b2_kernel_ms = _kernel_ms(b2_call, "march_adjoint_kernel", 5)
+    # 3 direction and 7 cotangent planes in; 3 gradient planes and status out.
+    b2_bound = _bound(n_rays * (13 * 4 + 4), frame_steps * ADJOINT_OPS_PER_STEP)
+
+    escaped = fwd.status == ESCAPED
+    inten, sat = params.stars.intensity, params.stars.saturation
+    w = torch.from_numpy(w_np).to(dev, dt)
+
+    def b4_call():
+        return b3.star_lookup_vjp_cuda(grid32, fwd.vel, inten, sat, escaped, w)
+
+    s_ker = b4_call()
+    s_ref = grid32.lookup_vjp(fwd.vel, inten, sat, escaped, w)
+    torch.cuda.synchronize()
+    print("  B4 at the training shape (all rays, escaped mask, seeded random cotangents):")
+    b4_err = _check_star_vjp(s_ker, s_ref, "float32", int(escaped.sum()))
+    b4_ms = _cuda_ms(b4_call, 10)
+    b4_kernel_ms = _kernel_ms(b4_call, "star_vjp_kernel", 10)
+    star_vjp_ms = _host_ms(lambda: grid32.lookup_vjp(fwd.vel, inten, sat, escaped, w), 2)
+    # The rows B3 needs; escaped rays' directions and cotangents, the mask;
+    # 3 gradient planes out.
+    b4_bound = _bound(star_table_bytes + n_escaped * 24 + n_rays + n_rays * 12,
+                      star_slots * STAR_OPS_PER_SLOT)
+    for what, ms, kms, plain, bound in (
+            ("B2 march adjoint", b2_ms, b2_kernel_ms, adjoint_ms, b2_bound),
+            ("B4 star VJP", b4_ms, b4_kernel_ms, star_vjp_ms, b4_bound)):
+        print(f"  {what}: wrapper {ms:.3f} ms, kernel {kms:.3f} ms, plain {plain:.3f} ms, "
+              f"bound {bound[0]:.3f} ms by {bound[1]}  [{card}]")
+
     # ---- results -------------------------------------------------------
     kernels = [
         {"name": "march (B1)", "route": "cuda",
          "source": "blackstar_tpu_torch/ops/csrc/march.cu",
          "replaces": "blackstar_tpu/ops/march_pallas.py:104",
-         "launches": launches["b1"], "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": march_ms,
-         "kernel_ms": b1_kernel_ms},
+         "launches": fit_launches["b1"], "launches_render": launches["b1"],
+         "max_abs_err": b1_err, "ms": b1_ms, "kernel_ms": b1_kernel_ms, "plain_ms": march_ms,
+         "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None},
+        {"name": "march adjoint (B2)", "route": "cuda",
+         "source": "blackstar_tpu_torch/ops/csrc/march_adjoint.cu",
+         "replaces": "blackstar_tpu/ops/march_adjoint_pallas.py:92",
+         "launches": fit_launches["b2"], "max_abs_err": b2_err, "ms": b2_ms,
+         "kernel_ms": b2_kernel_ms, "plain_ms": adjoint_ms,
+         "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None},
         {"name": "star lookup (B3)", "route": "cuda",
          "source": "blackstar_tpu_torch/stars/csrc/star_lookup.cu",
          "replaces": "blackstar_tpu/stars/grid.py:717",
-         "launches": launches["b3"], "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": lookup_ms,
-         "kernel_ms": b3_kernel_ms},
+         "launches": fit_launches["b3"], "launches_render": launches["b3"],
+         "max_abs_err": b3_err, "ms": b3_ms, "kernel_ms": b3_kernel_ms, "plain_ms": lookup_ms,
+         "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None},
+        {"name": "star VJP (B4)", "route": "cuda",
+         "source": "blackstar_tpu_torch/stars/csrc/star_lookup.cu",
+         "replaces": "blackstar_tpu/stars/grid.py:377",
+         "launches": fit_launches["b4"], "max_abs_err": b4_err, "ms": b4_ms,
+         "kernel_ms": b4_kernel_ms, "plain_ms": star_vjp_ms,
+         "bound_ms": b4_bound[0], "bound_by": b4_bound[1], "library_ms": None},
     ]
     print()
     print(_card_line())

@@ -1,0 +1,190 @@
+"""Port parity: the training path. Gradients of the port's ``image_loss``
+(the differentiable render: plain march under the march autograd Function,
+plain star VJP under the star Function, on the CPU) w.r.t. every
+``SceneParams`` leaf against ``jax.grad`` of the JAX package's
+``image_loss``; ``fit_scene`` steps against the JAX loop; checkpoints read
+across the packages; and the fit CLI against the JAX CLI. Float64, 12×7."""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from blackstar_tpu import fit as jfit
+from blackstar_tpu.camera import generate_rays as j_generate_rays
+from blackstar_tpu.cli import fit as j_cli_fit
+from blackstar_tpu.config import Config as JConfig
+from blackstar_tpu.geodesic import ESCAPED
+from blackstar_tpu.render import run_march as j_run_march
+from blackstar_tpu.stars.catalog import Catalog
+from blackstar_tpu.stars.grid import build_star_grid
+from blackstar_tpu_torch import config as tconfig
+from blackstar_tpu_torch import fit as tfit
+from blackstar_tpu_torch.cli import fit as t_cli_fit
+from blackstar_tpu_torch.imageio import srgb_decode, srgb_encode, write_png
+from blackstar_tpu_torch.stars import grid as tgrid
+
+SCENE = {
+    "camera": {"position": [0, 1, -20], "lookAt": [2, 0, 0], "upVec": [-0.2, 1, 0],
+               "fov": 1.5},
+    "scene": {"resolution": [12, 7], "dtype": "float64", "maxSteps": 300,
+              "diskOpacity": 0.95, "diskInner": 1.8, "diskOuter": 13.0,
+              "starIntensity": 0.7, "starSaturation": 0.6},
+}
+# Max |Δ| over a leaf's components, relative to the leaf's largest JAX
+# gradient component: the two packages differ in rounding only (the JAX
+# CPU path is autodiff of the scan march; the port's the hand-derived
+# adjoint), which measures ~1e-11 here.
+GRAD_RTOL = 1e-8
+
+
+def _sky(jcfg):
+    """Stars placed on (perturbed) escaped-ray directions of the frame, so
+    the PSF query hits: a random catalogue almost never lands within
+    0.0015 rad of only 84 rays."""
+    params, static = jcfg.params(), jcfg.static()
+    pos0, vel0 = j_generate_rays(params.camera, 12, 7, dtype=jnp.float64)
+    res = j_run_march(pos0, vel0, params, static, use_pallas=False)
+    esc = np.asarray(res.vel)[np.asarray(res.status) == ESCAPED]
+    esc = esc / np.linalg.norm(esc, axis=-1, keepdims=True)
+    rng = np.random.default_rng(9)
+    spos = np.repeat(esc, 3, axis=0) + 5e-4 * rng.normal(size=(esc.shape[0] * 3, 3))
+    spos /= np.linalg.norm(spos, axis=-1, keepdims=True)
+    return Catalog(pos=spos, mag=rng.integers(600, 1100, len(spos)).astype(np.int32),
+                   hue=np.full(len(spos), 0.094), sat=np.full(len(spos), 0.29))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = JConfig.from_dict(SCENE)
+    cat = _sky(jcfg)
+    rng = np.random.default_rng(3)
+    target = rng.uniform(0.0, 0.6, size=(7, 12, 3))
+    tcfg = tconfig.Config.from_dict(SCENE)
+    return dict(jcfg=jcfg, tcfg=tcfg, jgrid=build_star_grid(cat, dtype=jnp.float64),
+                tgrid=tgrid.build_star_grid_compact(cat).to_grid("cpu", dtype=torch.float64),
+                target=target)
+
+
+def _port_params(jparams):
+    return tconfig.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+
+
+@pytest.mark.parametrize("pyramid", [0, 1])
+def test_image_loss_grads_match_jax(setup, pyramid):
+    jp, static = setup["jcfg"].params(), setup["jcfg"].static()
+    j_loss, j_grads = jax.value_and_grad(jfit.image_loss)(
+        jp, static, jnp.asarray(setup["target"]), setup["jgrid"], pyramid=pyramid)
+
+    tp = _port_params(jp)
+    for _, leaf in tconfig.param_leaves(tp):
+        leaf.requires_grad_(True)
+    t_loss = tfit.image_loss(tp, setup["tcfg"].static(), torch.from_numpy(setup["target"]),
+                             setup["tgrid"], pyramid=pyramid)
+    t_loss.backward()
+
+    assert float(t_loss.detach()) == pytest.approx(float(j_loss), rel=1e-12)
+    live = 0
+    for (path, leaf), want in zip(tconfig.param_leaves(tp), jax.tree.leaves(j_grads)):
+        want = np.asarray(want)
+        got = np.zeros_like(want) if leaf.grad is None else leaf.grad.numpy()
+        scale = float(np.max(np.abs(want)))
+        assert float(np.max(np.abs(got - want))) <= GRAD_RTOL * scale + 1e-15, (path, got, want)
+        live += scale > 0
+    # Every leaf but bloom_strength (bloom is outside the loss) has a gradient.
+    assert live == len(tconfig.LEAF_PATHS) - 1
+
+
+def test_leaf_paths_follow_jax_flatten_order(setup):
+    jp = setup["jcfg"].params()
+    paths = ["".join(str(k) for k in path)
+             for path, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert paths == [p for p, _ in tconfig.param_leaves(_port_params(jp))]
+
+
+FIT_STEPS, FIT_LR = 3, 0.05
+
+
+def _fit_start(cfg_params):
+    """The truth with disk.outer moved to 12.5."""
+    return dataclasses.replace(
+        cfg_params, disk=dataclasses.replace(cfg_params.disk, outer=cfg_params.disk.outer * 0 + 12.5))
+
+
+def test_fit_scene_steps_match_jax(setup):
+    jcfg, tcfg = setup["jcfg"], setup["tcfg"]
+    keep = lambda path: path in (".disk.outer", ".mass", ".camera.fov")
+    jstart = _fit_start(jcfg.params())
+    jfitted, jlosses = jfit.fit_scene(
+        jstart, jcfg.static(), jnp.asarray(setup["target"]), setup["jgrid"], steps=FIT_STEPS,
+        learning_rate=FIT_LR, grad_mask=jfit.trainable_mask(jstart, keep))
+    tstart = _port_params(jstart)
+    tfitted, tlosses = tfit.fit_scene(
+        tstart, tcfg.static(), torch.from_numpy(setup["target"]), setup["tgrid"],
+        steps=FIT_STEPS, learning_rate=FIT_LR, grad_mask=tfit.trainable_mask(tstart, keep))
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-10)
+    for (path, got), want, start in zip(tconfig.param_leaves(tfitted), jax.tree.leaves(jfitted),
+                                        jax.tree.leaves(jstart)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-12,
+                                   err_msg=path)
+        moved = not np.array_equal(got.numpy(), np.asarray(start))
+        assert moved == keep(path), path
+    assert tlosses[-1] < tlosses[0]
+
+
+def test_srgb_decode_matches_jax_and_inverts_encode():
+    from blackstar_tpu.imageio import srgb_decode as j_srgb_decode
+
+    x = np.arange(256, dtype=np.float64) / 255.0
+    got = srgb_decode(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_srgb_decode(jnp.asarray(x))),
+                               rtol=1e-15, atol=0)
+    np.testing.assert_allclose(srgb_encode(got).numpy(), x, rtol=0, atol=1e-14)
+
+
+def test_checkpoints_cross_load(setup, tmp_path):
+    jp = setup["jcfg"].params()
+    tp = _port_params(jp)
+    jfit.save_params(jp, str(tmp_path / "jax"))
+    tfit.save_params(tp, str(tmp_path / "port"))
+    from_jax = tfit.load_params(str(tmp_path / "jax"), "cpu")
+    from_port = jfit.load_params(str(tmp_path / "port.npz"), jp)
+    for (path, a), b, c in zip(tconfig.param_leaves(from_jax), jax.tree.leaves(jp),
+                               jax.tree.leaves(from_port)):
+        assert a.dtype == torch.float64 and tuple(a.shape) == np.shape(b), path
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=path)
+        np.testing.assert_array_equal(np.asarray(c), np.asarray(b), err_msg=path)
+
+
+def test_fit_cli_writes_the_jax_fitted_yaml(setup, tmp_path):
+    scene = tmp_path / "scene.yaml"
+    start = tconfig.Config.from_dict(SCENE)
+    start.scene.disk_outer = 12.5
+    start.scene.bloom_strength = 0.0
+    tconfig.save_config(start, str(scene))
+    truth = setup["tcfg"].params("cpu")
+    from blackstar_tpu_torch.render import render
+
+    target = tmp_path / "target.png"
+    write_png(render(truth, setup["tcfg"].static()), str(target))
+    common = [str(scene), str(target), "--steps", "2", "--lr", "0.05", "--fit", "disk.outer",
+              "--force"]
+    assert t_cli_fit.main(common + ["-o", str(tmp_path / "port.yaml"), "--device", "cpu",
+                                    "--checkpoint", str(tmp_path / "ck")]) == 0
+    assert j_cli_fit.main(common + ["-o", str(tmp_path / "jax.yaml")]) == 0
+    got = yaml.safe_load(open(tmp_path / "port.yaml"))
+    want = yaml.safe_load(open(tmp_path / "jax.yaml"))
+    assert list(got) == list(want) and list(got["scene"]) == list(want["scene"])
+    for sec in ("scene", "camera"):
+        for k, w in want[sec].items():
+            if isinstance(w, (str, bool)):
+                assert got[sec][k] == w, k
+            else:
+                np.testing.assert_allclose(got[sec][k], w, rtol=1e-10, err_msg=k)
+    assert got["scene"]["diskOuter"] != 12.5
+    assert os.path.exists(tmp_path / "ck.npz")
