@@ -10,7 +10,7 @@ phase exits non-zero):
 
 1. the card: CUDA must be available; print versions and the card's name
    and power limit;
-2. build both kernels from the sources in the checkout;
+2. build the five kernel sources in the checkout, in parallel;
 3. the march kernel B1 against the plain march on the card, default scene
    at 480×270, in float64 and float32;
 4. the star kernel B3 against the plain lookup on the card, the full
@@ -37,17 +37,36 @@ phase exits non-zero):
 10. times at the 1080p training shapes: a warm training step with every
    leaf trainable (forward, forward + backward, the whole step), its
    device-time profile and peak memory, and B2 and B4 (kernel, wrapper,
-   plain version, each kernel held to its plain version there).
+   plain version, each kernel held to its plain version there);
+11. the windowed star stage's kernels K1 and K2 against their plain
+   versions on the prototype's synthetic grid, fed the same pre-pass
+   outputs: float64 at 4 tiles (pointers and masks equal, colours within
+   1e-9, and the stage within 1e-9 of the plain per-ray lookup on covered,
+   not-missed rays) and float32 at 507 tiles (B3's f32 gates); then the
+   stage through its entry point ``python -m
+   blackstar_tpu_torch.scripts.proto_window_kernel`` (K1 and K2 launched,
+   no plain pass called, the stage within B3's gates of B3);
+12. the windowed stage on the 1920×1080 default frame's rays (padded with
+   non-escaped rays to 507 tiles) and the 470k-star grid in float32: its
+   coverage and missed-overflow share, K1 + K2 against the plain passes and
+   the stage against B3 on covered, not-missed rays (B3's f32 gates), and
+   the times of K1, K2, the stage and B3 on the same rays;
+13. the dynamic-gather probe through its entry point ``python -m
+   blackstar_tpu_torch.scripts.probe_dynamic_gather``: the row gather, lane
+   gather and range copy kernels at every size, each equal bit for bit to
+   its plain version, with their times and the library calls' times.
 
 The last two lines of stdout are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``. Per kernel, ``ms`` is the wrapper's time
 per call as the main path calls it (CUDA events), ``kernel_ms`` the
 kernel's own device time (torch.profiler), ``plain_ms`` the plain version's
-wall time per call, all at the 1080p shapes; ``launches`` the count in the
-fit CLI's run (``launches_render``: in the render CLI's run); ``bound_ms``
-the least time the card could take for the same work on this run's data
-(the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
-float32 without tensor cores).
+time per call, all at the 1080p shapes (for the probe kernels: their
+largest size, and ``library_ms`` the PyTorch call that computes the same);
+``launches`` the count in the fit CLI's run (``launches_render``: in the
+render CLI's run; K1, K2 and the probe kernels: in their entry points'
+runs); ``bound_ms`` the least time the card could take for the same work on
+this run's data (the larger of its bytes over 3.35 TB/s and its operations
+over 67 TFLOP/s, float32 without tensor cores).
 """
 
 import concurrent.futures
@@ -154,6 +173,10 @@ ADJOINT_OPS_PER_STEP = 310
 # difference (3), d^2 (5) and the cutoff compare (1). The PSF of the few
 # slots inside the cutoff is left out.
 STAR_OPS_PER_SLOT = 9
+# The TPU probe kernels the gather probe's kernels replace.
+PROBE_REPLACES = {"row gather": "scripts/probe_dynamic_gather.py:42",
+                  "lane gather": "scripts/probe_dynamic_gather.py:54",
+                  "range copy": "scripts/probe_dynamic_gather.py:157"}
 
 
 def _bound(nbytes, ops):
@@ -340,6 +363,10 @@ def main():
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.artifact import ensure_star_grid
     from blackstar_tpu_torch.stars.grid import StarGrid, load_star_grid_compact
+    from blackstar_tpu_torch.scripts import probe_dynamic_gather as probe
+    from blackstar_tpu_torch.scripts import proto_window_kernel as proto
+    from blackstar_tpu_torch.stars import window
+    from blackstar_tpu_torch.stars import window_cuda as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -355,10 +382,11 @@ def main():
     _banner("2. build")
     t0 = time.perf_counter()
     jobs = {"B1 march": b1.build, "B2 march adjoint": b2.build,
-            "B3 star lookup + B4 star VJP": b3.build}
+            "B3 star lookup + B4 star VJP": b3.build, "K1 + K2 windowed stage": wk.build,
+            "gather probe": probe.build}
     jobs.update({f"ptxas -v {os.path.basename(m.SOURCE)}":
                  functools.partial(_build.load, m.SOURCE, m.FLAGS + ("-Xptxas", "-v"))
-                 for m in (b1, b2, b3)})
+                 for m in (b1, b2, b3, wk, probe)})
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in jobs.items()}
         for name, fut in futures.items():
@@ -718,6 +746,195 @@ def main():
         print(f"  {what}: wrapper {ms:.3f} ms, kernel {kms:.3f} ms, plain {plain:.3f} ms, "
               f"bound {bound[0]:.3f} ms by {bound[1]}  [{card}]")
 
+    # ---- 11. the windowed stage on the prototype's synthetic grid -------
+    _banner("11. windowed star stage K1 + K2 vs plain passes, the prototype's synthetic grid")
+    shade = (proto.INTENSITY, proto.SATURATION)
+    for dtype, n_tiles in ((torch.float64, 4), (torch.float32, 507)):
+        sgrid, sv, sesc = proto.synthetic_case(n_tiles, dtype, dev)
+        inp = window.stage_inputs(sv, sesc, sgrid)  # one pre-pass for both
+        ker = window.run_passes(inp, sgrid, *shade, wk.k1_cuda, wk.k2_cuda)
+        ref = window.run_passes(inp, sgrid, *shade, window.k1_reference, window.k2_reference)
+        torch.cuda.synchronize()
+        print(f"  {dtype}, {n_tiles} tiles: covered {ker.covered.double().mean().item():.4f}, "
+              f"ovf_missed {ker.ovf_missed.double().mean().item():.4f}, "
+              f"rays with an overflow row {int((ker.optr > 0).sum())}")
+        proto.compare_passes(ker, ref, dtype)
+        if dtype == torch.float64:
+            look = sgrid.lookup(sv, *(torch.tensor(x, dtype=dtype) for x in shade), sesc)
+            m = ker.covered & ~ker.ovf_missed
+            d = (ker.rgb[m] - look[m]).abs().max().item()
+            print(f"  float64 stage vs plain per-ray lookup (covered, not missed): max |d| {d:.3e}")
+            torch.testing.assert_close(ker.rgb[m], look[m], rtol=0, atol=1e-9)
+        del sgrid, sv, sesc, inp, ker, ref
+    torch.cuda.empty_cache()
+    for f in (wk.k1_cuda, wk.k2_cuda):
+        f.launches = 0
+    window.k1_reference.calls = window.k2_reference.calls = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        proto_res = proto.main([])
+    print("  | " + log.getvalue().strip().replace("\n", "\n  | "))
+    window_path = proto_res["path"]
+    print(f"  entry point run {time.perf_counter() - t0:.1f} s; the stage's run: {window_path}; "
+          f"after the whole run: K1 {wk.k1_cuda.launches}, K2 {wk.k2_cuda.launches} launches")
+    if (min(window_path["k1 launches"], window_path["k2 launches"]) < 1
+            or max(window_path["k1 plain calls"], window_path["k2 plain calls"]) != 0
+            or min(wk.k1_cuda.launches, wk.k2_cuda.launches) < 1):
+        raise AssertionError("the windowed stage did not go through K1 and K2 alone")
+
+    # ---- 12. the windowed stage on the 1080p frame ----------------------
+    _banner("12. windowed star stage on the 1920x1080 frame's rays, 470k-star grid, float32")
+    cfg = _scene(1920, 1080, "float32")
+    params, static = cfg.params(dev), cfg.static()
+    dt = static.tdtype
+    pos0, planes = generate_ray_components(params.camera, 1920, 1080, dtype=dt)
+    res = b1.march_cuda(pos0, planes, params, static, safe_distance(params, dt))
+    n_tiles = -(-n_rays // window.T)
+    n_pad = n_tiles * window.T - n_rays
+    # Pad to whole tiles with non-escaped rays along the last ray's direction.
+    fv = torch.cat([res.vel, res.vel[-1:].expand(n_pad, 3)])
+    fesc = torch.cat([res.status == ESCAPED, torch.zeros((n_pad,), dtype=torch.bool, device=dev)])
+    inten, sat = params.stars.intensity, params.stars.saturation
+    fshade = (float(inten), float(sat))
+    for f in (wk.k1_cuda, wk.k2_cuda):
+        f.launches = 0
+    window.k1_reference.calls = window.k2_reference.calls = 0
+    w_rgb, w_cov, w_missed = window.window_stage(fv, fesc, grid32, *fshade)
+    frame_counts = proto.counts()
+    print(f"  {n_rays} rays + {n_pad} padding = {n_tiles} tiles; the stage's run: {frame_counts}")
+    if (min(frame_counts["k1 launches"], frame_counts["k2 launches"]) < 1
+            or max(frame_counts["k1 plain calls"], frame_counts["k2 plain calls"]) != 0):
+        raise AssertionError("the frame's windowed stage did not go through K1 and K2 alone")
+    n_esc = int(fesc.sum())
+    coverage = int(w_cov.sum()) / n_esc
+    missed_share = int(w_missed.sum()) / n_esc
+    print(f"  escaped rays {n_esc}: covered {coverage:.4f}, ovf_missed {missed_share:.4f} "
+          f"(of the escaped rays)")
+    inp = window.stage_inputs(fv, fesc, grid32)
+    ker = window.run_passes(inp, grid32, *fshade, wk.k1_cuda, wk.k2_cuda)
+    ref = window.run_passes(inp, grid32, *fshade, window.k1_reference, window.k2_reference)
+    torch.cuda.synchronize()
+    proto.compare_passes(ker, ref, torch.float32)
+    b3_rgb = b3.star_lookup_cuda(grid32, fv, inten, sat, fesc)
+    m = w_cov & ~w_missed
+    proto.f32_gate("stage vs B3 (covered, not missed)", w_rgb[m], b3_rgb[m])
+    s2 = ker.s2
+    del ker, ref, b3_rgb
+
+    consts = grid32.psf_constants(dt)
+    tbl3 = grid32.cell_data.reshape(grid32.n_rings, grid32.n_cols, -1)
+    ovf_tbl, octets, _ = window.overflow_tables(grid32)
+    k1_args = (inp.starts, inp.widx, inp.covered, inp.rx, inp.ry, inp.rz, tbl3, consts, *fshade)
+    k1_out = wk.k1_cuda(*k1_args)
+    k1_ref = window.k1_reference(*k1_args)
+    cov = inp.covered
+    k1_err = max((a[cov] - b[cov]).abs().max().item() for a, b in zip(k1_out[:3], k1_ref[:3]))
+    if not torch.equal(k1_out[3][cov], k1_ref[3][cov]):
+        raise AssertionError("K1's pointers differ from the plain pass's on covered rays")
+    optr = torch.where(cov, k1_out[3], 0)
+    k2_args = (s2, optr, cov, inp.rx, inp.ry, inp.rz, ovf_tbl, octets, consts, *fshade)
+    k2_out = wk.k2_cuda(*k2_args)
+    k2_ref = window.k2_reference(*k2_args)
+    k2_err = max((a - b).abs().max().item() for a, b in zip(k2_out, k2_ref))
+    print(f"  K1 vs plain (covered rays) max |d| {k1_err:.3e}; K2 vs plain max |d| {k2_err:.3e}")
+    if max(k1_err, k2_err) > 3e-2:
+        raise AssertionError("K1 or K2 differs from its plain pass beyond 3e-2")
+    k1_ms = _cuda_ms(lambda: wk.k1_cuda(*k1_args), 10)
+    k1_kernel_ms = _kernel_ms(lambda: wk.k1_cuda(*k1_args), "k1_kernel", 10)
+    k1_plain_ms = _host_ms(lambda: window.k1_reference(*k1_args), 2)
+    k2_ms = _cuda_ms(lambda: wk.k2_cuda(*k2_args), 10)
+    k2_kernel_ms = _kernel_ms(lambda: wk.k2_cuda(*k2_args), "k2_kernel", 10)
+    k2_plain_ms = _host_ms(lambda: window.k2_reference(*k2_args), 2)
+    stage_ms = _cuda_ms(lambda: window.window_stage(fv, fesc, grid32, *fshade), 10)
+    frame_b3_ms = _cuda_ms(lambda: b3.star_lookup_cuda(grid32, fv, inten, sat, fesc), 10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            window.window_stage(fv, fesc, grid32, *fshade)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    by_kernel, n_launch = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 3e3
+            n_launch += 1
+    print(f"  profile of the stage: device busy {sum(by_kernel.values()):.3f} ms in "
+          f"{n_launch / 3:.0f} device operations, wall {prof_wall_ms:.3f} ms under the "
+          f"profiler; largest:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:9.4f} ms  {name[:100]}")
+    dec = torch.rad2deg(torch.asin(inp.rz[fesc].double()))
+    print(f"  escaped rays' declination: median {dec.median().item():.1f} deg, share above "
+          f"60 deg {(dec > 60).double().mean().item():.4f}")
+
+    # Bounds from this run's data. K1: the cover mask of every ray, the
+    # direction and window index of the covered rays, the tile starts and
+    # the distinct base rows of the covered rays' cells; out, every ray's
+    # colour and pointer. K2: the cover mask of every ray, the pointers of
+    # the covered ones, the directions of the taking-part rays, the window
+    # starts and the used octets of the distinct overflow rows they read;
+    # out, every ray's colour.
+    esz = grid32.cell_data.element_size()
+    n_all = fv.shape[0]
+    t_of = torch.arange(n_all, device=dev) // window.T
+    w = inp.widx.long()
+    cells = ((inp.starts[t_of, 0].long() + w // window.DC) * grid32.n_cols
+             + inp.starts[t_of, 1].long() + w % window.DC)[cov]
+    n_cov = int(cov.sum())
+    k1_bytes = (n_all + n_cov * (3 * esz + 4) + n_tiles * 8
+                + torch.unique(cells).numel() * grid32.cell_data.shape[1] * esz
+                + n_all * (3 * esz + 4))
+    k1_bound = _bound(k1_bytes, n_cov * grid32.pad_k * STAR_OPS_PER_SLOT)
+    s_ray = s2.repeat_interleave(window.T)
+    part = cov & (optr > 0) & (optr >= s_ray) & (optr < s_ray + window.OVW)
+    octs = octets.long()
+    k2_rows = torch.unique(optr[part].long())
+    k2_bytes = (n_all + n_cov * 4 + int(part.sum()) * 3 * esz + n_tiles * 4
+                + int(octs[k2_rows].sum()) * 8 * window.ROW * esz + n_all * 3 * esz)
+    k2_bound = _bound(k2_bytes, int((octs[optr[part].long()] * 8).sum()) * STAR_OPS_PER_SLOT)
+    print(f"  work: K1 {n_cov} covered rays, {torch.unique(cells).numel()} distinct base rows; "
+          f"K2 {int(part.sum())} rays with an overflow row in their window, {k2_rows.numel()} "
+          f"distinct overflow rows")
+    for what, ms, kms, plain, bound in (("K1", k1_ms, k1_kernel_ms, k1_plain_ms, k1_bound),
+                                        ("K2", k2_ms, k2_kernel_ms, k2_plain_ms, k2_bound)):
+        print(f"  {what}: wrapper {ms:.3f} ms, kernel {kms:.3f} ms, plain {plain:.3f} ms, "
+              f"bound {bound[0]:.4f} ms by {bound[1]}  [{card}]")
+    print(f"  windowed stage (pre-pass, K1, K2, glue) {stage_ms:.3f} ms against B3 {frame_b3_ms:.3f} "
+          f"ms on the same {n_all} rays; coverage {coverage:.4f} of the escaped rays  [{card}]")
+    del inp, k1_out, k1_ref, k2_out, k2_ref, w_rgb, fv
+    torch.cuda.empty_cache()
+
+    # ---- 13. the dynamic-gather probe ------------------------------------
+    _banner("13. dynamic-gather probe through its entry point")
+    for f, _plain in probe.WRAPPERS.values():
+        f.launches = 0
+        _plain.calls = 0
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        probe_results, probe_path = probe.main([])
+    print("  | " + log.getvalue().strip().replace("\n", "\n  | "))
+    for name in probe.WRAPPERS:
+        if probe_path[f"{name} launches"] < 1 or probe_path[f"{name} plain calls"] != 0:
+            raise AssertionError(f"the probe's {name} did not run through its kernel alone")
+    probe_entries = []
+    for name, (wrapper, _plain) in probe.WRAPPERS.items():
+        if wrapper.launches < 1:
+            raise AssertionError(f"the probe's {name} kernel was never launched")
+        largest = [r for r in probe_results if r["kernel"] == name][-1]
+        bound = _bound(largest["bytes"], 0)
+        kms = _kernel_ms(largest["call"], name.replace(" ", "_") + "_kernel", 10)
+        print(f"  {name} at {largest['size'].strip()}: wrapper {largest['ms']:.4f} ms, kernel "
+              f"{kms:.4f} ms, plain {largest['plain_ms']:.4f} ms, library "
+              f"{largest['library_ms']:.4f} ms, bound {bound[0]:.5f} ms by bytes  [{card}]")
+        probe_entries.append({
+            "name": f"{name} (probe)", "route": "cuda",
+            "source": "blackstar_tpu_torch/scripts/csrc/probe_dynamic_gather.cu",
+            "replaces": PROBE_REPLACES[name], "launches": probe_path[f"{name} launches"],
+            "max_abs_err": 0.0, "size": largest["size"].strip(), "ms": largest["ms"],
+            "kernel_ms": kms, "plain_ms": largest["plain_ms"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": largest["library_ms"]})
+
     # ---- results -------------------------------------------------------
     kernels = [
         {"name": "march (B1)", "route": "cuda",
@@ -744,6 +961,19 @@ def main():
          "launches": fit_launches["b4"], "max_abs_err": b4_err, "ms": b4_ms,
          "kernel_ms": b4_kernel_ms, "plain_ms": star_vjp_ms,
          "bound_ms": b4_bound[0], "bound_by": b4_bound[1], "library_ms": None},
+        {"name": "windowed stage base pass (K1)", "route": "cuda",
+         "source": "blackstar_tpu_torch/stars/csrc/star_window.cu",
+         "replaces": "scripts/proto_window_kernel.py:102",
+         "launches": window_path["k1 launches"], "launches_frame": frame_counts["k1 launches"],
+         "max_abs_err": k1_err, "ms": k1_ms, "kernel_ms": k1_kernel_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "windowed stage overflow pass (K2)", "route": "cuda",
+         "source": "blackstar_tpu_torch/stars/csrc/star_window.cu",
+         "replaces": "scripts/proto_window_kernel.py:136",
+         "launches": window_path["k2 launches"], "launches_frame": frame_counts["k2 launches"],
+         "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+        *probe_entries,
     ]
     print()
     print(_card_line())

@@ -1,0 +1,76 @@
+"""Port parity: the dynamic-gather probe's plain versions
+(``blackstar_tpu_torch/scripts/probe_dynamic_gather.py``) against the TPU
+probe's Pallas kernels ``scripts/probe_dynamic_gather.py`` in interpret mode,
+on the probe's own seeded inputs, on the CPU. The TPU probe is loaded by file
+path and not changed."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from blackstar_tpu_torch.scripts import probe_dynamic_gather as tprobe
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "_jax_probe_dynamic_gather", os.path.join(_ROOT, "scripts", "probe_dynamic_gather.py"))
+jprobe = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jprobe)
+
+
+def _inputs(rows, cols, hi):
+    """The TPU probe's table and indices for one size (float32, int32)."""
+    rng = np.random.default_rng(0)
+    tbl = rng.standard_normal((rows, cols)).astype(np.float32)
+    idx_shape = (rows, 1) if hi == rows else (rows, cols)
+    return tbl, rng.integers(0, hi, idx_shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("rows", [8, 256])
+def test_row_gather_matches_pallas(rows):
+    cols = tprobe.ROW_GATHER_COLS
+    tbl, idx = _inputs(rows, cols, rows)
+    want = np.asarray(jprobe._pallas_row_gather(rows, cols, True)(idx, tbl))
+    got = tprobe.row_gather_cuda(torch.from_numpy(tbl), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,cols", [(8, 128), (256, 128)])
+def test_lane_gather_matches_pallas(rows, cols):
+    tbl, idx = _inputs(rows, cols, cols)
+    want = np.asarray(jprobe._pallas_lane_gather(rows, cols, True)(idx, tbl))
+    got = tprobe.lane_gather_cuda(torch.from_numpy(tbl), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_range_copy_matches_probe_slice():
+    """The slice the TPU probe holds its range DMA to: tbl[128:128+rows, :128]."""
+    rng = np.random.default_rng(0)
+    tbl = rng.standard_normal(tprobe.RANGE_TABLE).astype(np.float32)
+    start = torch.tensor([tprobe.RANGE_START], dtype=torch.int32)
+    for rows in tprobe.RANGE_ROWS:
+        got = tprobe.range_copy_cuda(torch.from_numpy(tbl), start, rows)
+        np.testing.assert_array_equal(got.numpy(), tbl[128:128 + rows, :128])
+
+
+def test_entry_point_cpu(capsys):
+    results, path = tprobe.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert len(results) == 12 and all(r["ok"] for r in results)
+    assert out.count("ok=True") == 12
+    assert path["row gather launches"] == 0 and path["row gather plain calls"] == 6
+
+
+@pytest.mark.parametrize("which", ["row", "lane", "range"])
+def test_wrappers_reject_other_devices(which):
+    tbl = torch.empty((8, 256), device="meta")
+    idx = torch.empty((8, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if which == "row":
+            tprobe.row_gather_cuda(tbl, idx)
+        elif which == "lane":
+            tprobe.lane_gather_cuda(tbl, idx.expand(8, 256))
+        else:
+            tprobe.range_copy_cuda(tbl, idx[:, 0][:1], 4)
