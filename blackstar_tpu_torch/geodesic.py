@@ -23,6 +23,8 @@ classification on the *pre-step* state (``findColor``, Raytracer.hs:88-102):
 Terminated rays freeze their state; the loop stops once every ray is done
 or the cap is reached. This is the CPU path and the yardstick of the march
 kernel (``ops/march_cuda.py``); it syncs with the device once per step.
+:func:`march_checkpointed` is the same march keeping what the march adjoint
+starts from: the yardstick of the march kernel's checkpointing variant.
 """
 
 from __future__ import annotations
@@ -40,12 +42,31 @@ ACTIVE = 0
 ESCAPED = 1
 HORIZON = 2
 
+# Adjoint checkpoints: a ray's state (px py pz vx vy vz alpha) before every
+# SEG_LEN-th advancing step (kSeg in ops/csrc/march.cu and march_adjoint.cu).
+SEG_LEN = 16
+CKPT_VALUES = 7
+
+
+def n_segments(max_steps: int) -> int:
+    """Checkpoint segments of a march capped at ``max_steps``."""
+    return max(1, -(-max_steps // SEG_LEN))
+
 
 class MarchResult(NamedTuple):
     acc_rgba: torch.Tensor  # (N, 4) front-to-back accumulated disk colour
     vel: torch.Tensor  # (N, 3) frozen velocity (escape direction for ESCAPED)
     status: torch.Tensor  # (N,) int32: ACTIVE (truncated) / ESCAPED / HORIZON
     steps: torch.Tensor  # () int32 loop iterations executed
+
+
+class CheckpointedMarch(NamedTuple):
+    result: MarchResult
+    # (n_segments, 7, N): (px py pz vx vy vz alpha) of ray i before its
+    # advancing step k = SEG_LEN·s, for every k < ray_steps[i]; zero where
+    # the ray ended before step SEG_LEN·s.
+    checkpoints: torch.Tensor
+    ray_steps: torch.Tensor  # (N,) int32 advancing RK4 steps of each ray
 
 
 def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -91,7 +112,8 @@ def _march_step(state, *, h, h2, mass, safe, disk_on, disk_rgb, disk):
 
     The classifier evaluates on the *pre-step* state (old position radius and
     old velocity) exactly like ``findColor`` receiving ``crd'`` before
-    ``newCrd`` (Raytracer.hs:79-81, :88-102).
+    ``newCrd`` (Raytracer.hs:79-81, :88-102). Returns the new state and the
+    mask of the rays this step advanced.
     """
     pos, vel, acc, status = state
 
@@ -142,7 +164,7 @@ def _march_step(state, *, h, h2, mass, safe, disk_on, disk_rgb, disk):
     upd = cont[:, None]
     pos = torch.where(upd, new_pos, pos)
     vel = torch.where(upd, new_vel, vel)
-    return pos, vel, acc, status
+    return (pos, vel, acc, status), cont
 
 
 def march(
@@ -160,6 +182,18 @@ def march(
     iterations: one more than the step at which the last ray terminated,
     or the cap.
     """
+    return _march(pos0, vel0, params, static, safe_distance, False).result
+
+
+def march_checkpointed(pos0: torch.Tensor, vel0: torch.Tensor, params: SceneParams,
+                       static: StaticConfig, safe_distance: torch.Tensor) -> CheckpointedMarch:
+    """:func:`march`, keeping each ray's checkpoints and advancing-step
+    count from the same steps: what the march kernel's checkpointing
+    variant writes for the adjoint (:class:`CheckpointedMarch`)."""
+    return _march(pos0, vel0, params, static, safe_distance, True)
+
+
+def _march(pos0, vel0, params, static, safe_distance, keep_checkpoints) -> CheckpointedMarch:
     march.calls += 1
     dt = static.tdtype
     vel0 = vel0.to(dt)
@@ -189,14 +223,25 @@ def march(
 
     state = (pos0, vel0, torch.zeros((n, 4), dtype=dt, device=dev),
              torch.zeros((n,), dtype=torch.int32, device=dev))
+    ckpt = ray_steps = None
+    if keep_checkpoints:
+        ckpt = torch.zeros((n_segments(static.max_steps), CKPT_VALUES, n), dtype=dt, device=dev)
+        ray_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
     steps = 0
     while steps < static.max_steps and bool((state[3] == ACTIVE).any()):
-        state = _march_step(state, **step_kw)
+        pre = state
+        state, cont = _march_step(state, **step_kw)
+        if keep_checkpoints:
+            if steps % SEG_LEN == 0:
+                vals = torch.cat([pre[0], pre[1], pre[2][:, 3:4]], dim=1).t()
+                ckpt[steps // SEG_LEN] = torch.where(cont, vals, 0)
+            ray_steps += cont.to(torch.int32)
         steps += 1
 
     pos, vel, acc, status = state
-    return MarchResult(acc_rgba=acc, vel=vel, status=status,
-                       steps=torch.tensor(steps, dtype=torch.int32, device=dev))
+    res = MarchResult(acc_rgba=acc, vel=vel, status=status,
+                      steps=torch.tensor(steps, dtype=torch.int32, device=dev))
+    return CheckpointedMarch(res, ckpt, ray_steps)
 
 
-march.calls = 0  # plain-path call count: shows which march a run took
+march.calls = 0  # plain-path call count (march, march_checkpointed): which march a run took

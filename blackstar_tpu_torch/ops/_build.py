@@ -85,6 +85,15 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
+def check_tensor(what: str, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` and ``dtype``
+    on ``device``: what a kernel reads or writes through a raw pointer."""
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {tuple(shape)} {dtype} tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def stream_handle(device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     import torch

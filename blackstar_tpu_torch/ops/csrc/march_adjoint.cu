@@ -1,61 +1,85 @@
 // March adjoint (kernel B2): reverse-mode gradients of the geodesic march,
-// one CUDA thread per ray.
+// one CUDA thread per ray, starting from the checkpoints that the forward
+// kernel B1 wrote in the same training step.
 //
 // Replaces the TPU Pallas kernel
 // blackstar_tpu/ops/march_adjoint_pallas.py::_adjoint_kernel and computes what
-// the plain adjoint blackstar_tpu_torch/ops/march_vjp.py::march_adjoint_reference
-// computes: from the ray directions and the cotangents of the march's outputs
-// (final velocity, RGBA) it returns d/d(vel0) per ray, the replayed status per
-// ray, and per block the 10 scalar partials (mass, disk inner / outer /
-// opacity, disk RGB, camera position xyz), which the wrapper sums.
+// the plain adjoint blackstar_tpu_torch/ops/march_vjp.py::
+// march_adjoint_from_checkpoints computes (and march_adjoint_reference from
+// the march's inputs alone): from the ray directions, the cotangents of the
+// march's outputs (final velocity, RGBA) and the forward's checkpoints it
+// returns d/d(vel0) per ray, each ray's status as its replayed final state
+// classifies it, and per block the 10 scalar partials (mass, disk inner /
+// outer / opacity, disk RGB, camera position xyz), which the wrapper sums.
+//
+// Inputs from B1 (march.cu, its checkpointing variant, in the autograd
+// forward): ray_steps, each ray's count nc of advancing steps, and an
+// (n_seg, 7, n) tensor laid out [segment][value][ray] holding (px py pz vx vy
+// vz alpha) before every advancing step k with k % 16 == 0. B1 and this
+// kernel take the same arithmetic, so those are the states this kernel's
+// replay passes through, bit for bit. So there is no forward replay here.
 //
 // Design.
-//   * Phase A replays the forward march of the thread's ray to its own
-//     terminating step, checkpointing (pos, vel, alpha) before every 16th
-//     step. The TPU kernel kept a tile's checkpoints in VMEM; here 39
-//     checkpoints x 7 values per ray (at the default 601-step cap) fit neither
-//     in registers nor in a block's shared memory at useful occupancy, so they
-//     live in global memory, laid out [segment][value][ray] so that a warp's
-//     stores and loads coalesce. The wrapper allocates them.
-//   * Phase B walks the segments newest first: it replays the segment from its
-//     checkpoint into a per-thread buffer of 17 states (local memory) and
-//     applies the step VJP in reverse, with each step's post-state taken from
-//     the buffer. The RK4 stage positions are recomputed inside the VJP
-//     rather than stored (the JAX package's store_stages option is
-//     bit-identical, tests/test_march_adjoint_pallas.py, and was TPU tuning).
-//   * Only the steps that advanced the ray (cont true) are reversed. The
-//     terminating step and every step after it are the identity for the
-//     adjoint (no cotangent flows through a frozen state), so each thread
-//     starts its reverse sweep at its own last active step; the TPU kernel's
-//     whole-tile early exit becomes a per-thread exit. The disk-blend VJP runs
-//     only on a step that hit the disk: on every other step all its terms are
-//     exact zeros.
+//   * Segments newest first. A thread replays its segment from the
+//     checkpoint (at most 16 steps), keeping each pre-step state in its own
+//     column of a [kSeg][kVals][threads] array in dynamic shared memory, then
+//     applies the step VJP in reverse over the segment's steps. A step's
+//     post-position is the next step's pre-position, and the last one's is
+//     still in registers after the replay, so 16 slots suffice. A warp's 32
+//     accesses to one (slot, value) fall on 32 consecutive words: no bank
+//     conflicts, and nothing goes to local memory (the replay buffer of the
+//     earlier design, indexed dynamically, lived there: a 504-byte stack
+//     frame per thread, 387 KB per SM at its occupancy, spilling to L2).
+//   * Stages: the VJP needs the RK4 stage positions q2, q3, q4, and
+//     recomputes them from the pre-state (two accelerations per step).
+//     Keeping them in the replay array instead (16 values a slot, the JAX
+//     package's store_stages) gave the same bits and ~100 fewer SASS
+//     instructions per step, but 1 KB of shared memory per thread leaves 7
+//     warps per SM: it ran 13.3 ms against 9.6 ms (PERF.md), so it was
+//     dropped.
+//   * Only the steps that advanced the ray are reversed; the terminating step
+//     and every step after it are the identity for the adjoint (no cotangent
+//     flows through a frozen state). The disk-blend VJP runs only on a step
+//     that hit the disk: on every other step all its terms are exact zeros.
+//   * The status is the replayed final state's class: ACTIVE (truncated) if
+//     nc reached the cap, else HORIZON or ESCAPED as B1 classified it. A
+//     replay that left B1's path would show here.
 //   * The h^2 = |p0 x v0|^2 chain closes in the kernel. The block sums its
-//     rays' 10 partials by warp shuffles and shared memory in a fixed order and
-//     writes one row of a (blocks, 10) buffer: no float atomics, so a run
-//     repeats bit for bit.
+//     rays' 10 partials by warp shuffles, then through the (by then free)
+//     shared array in a fixed order, and writes one row of a (blocks, 10)
+//     buffer: no float atomics, so a run repeats bit for bit.
 //
-// Arithmetic. The replay uses the forward kernel B1's arithmetic and order
-// (march.cu): r^-5 as coef / (r^2 r^2 sqrt(r^2)), the same RK4 tableau order,
-// the step's half and sixth rounded on the host. The JAX package's adjoint
-// took r^-5 by rsqrt powers; here the replayed statuses equal B1's in float32
-// as in float64, so the gradient is that of the frame B1 rendered. The VJP
-// formulas follow march_vjp.rk4_vjp / step_vjp as written, in the plain
-// version's operation order. The file builds with -fmad=false and without fast
-// math, as B1 does, so each operation rounds as the plain PyTorch version's
-// one-operation kernels round.
+// Arithmetic. The replay uses B1's arithmetic and order: r^-5 as
+// coef / (r^2 r^2 sqrt(r^2)), the same RK4 tableau order, the step's half and
+// sixth rounded on the host. The VJP formulas follow march_vjp.rk4_vjp /
+// step_vjp as written, in the plain version's operation order. The file
+// builds with -fmad=false and without fast math, as B1 does, so each
+// operation rounds as the plain PyTorch version's one-operation kernels
+// round, and the per-ray gradients equal the plain adjoint's bit for bit.
 //
-// What bounds it on an H100: per ray it reads 10 planes (directions and
-// cotangents) and writes 4 (gradients, status), ~56 bytes in float32, while
-// every advancing step costs two RK4 replays (~135 operations each) and the
-// VJP (two stage accelerations and four symmetric-Jacobian applications, ~230
-// operations): ~500 operations per ray-step, compute-bound like B1. The
-// checkpoints add ~56 bytes per ray per 16 steps of device-memory traffic
-// (written once, read once), far below the compute. `nvcc -Xptxas -v` on the
-// card: float 78 registers and a 504-byte stack frame (the replay buffer),
-// double 148 registers and 992 bytes, no spill in either. At 1920x1080 f32
-// the kernel took 12.7 ms against an operation bound of 2.1 ms (NVIDIA H100
-// 80GB HBM3, 700 W; chip_smoke.py, PERF.md).
+// What bounds it on an H100: per ray it reads 10 planes (directions,
+// cotangents), the step count and its checkpoints, and writes 4 (gradients,
+// status): ~56 bytes plus 28 bytes per 16 steps in float32. Every advancing
+// step costs a replayed RK4 step and the VJP (two recomputed stage
+// accelerations, four symmetric-Jacobian applications); without fast math
+// each divide and square root is an IEEE sequence, ~425 FP32 instructions
+// per ray-step in all, so it is bound by FP32 issue, not by memory. Each
+// ray is a scalar ODE: there is no matrix product for the tensor cores
+// (wgmma) and no tile of bytes worth a TMA stream. What the card offers this
+// kernel is its registers, up to 227 KB of shared memory per block for the
+// replay, and its FP32 issue rate.
+//
+// Occupancy is set by the replay array: 233,472 bytes of shared memory per
+// SM, less 1 KB the runtime takes per block, so about 512 bytes per thread
+// buy 16 warps whatever the block size; the block size only has to divide
+// the SM's share evenly. Float: 16 x 7 x 4 B x 128 threads = 57,344 B, 4
+// blocks (16 warps) per SM, so __launch_bounds__ lets registers go up to
+// 128; `nvcc -Xptxas -v` on the card: 81 registers, a 32-byte stack frame
+// (the slow path of sin's argument reduction, as in B1), no spills. Double
+// (the gate): 114,688 B, 2 blocks (8 warps), 154 registers. Measured at
+// 1920x1080 float32 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md):
+// 9.6 ms, against 12.9 ms for the earlier design and an operation bound of
+// 2.1 ms.
 //
 // Templated on float (the training path) and double (the on-card gate that
 // separates semantics from rounding).
@@ -68,11 +92,20 @@ namespace {
 constexpr int kActive = 0;
 constexpr int kEscaped = 1;
 constexpr int kHorizon = 2;
-constexpr int kThreads = 128;
-constexpr int kSeg = 16;      // steps per checkpoint segment
-constexpr int kVals = 7;      // checkpointed values: px py pz vx vy vz alpha
+constexpr int kSeg = 16;        // steps per checkpoint segment (B1's kSeg)
+constexpr int kVals = 7;        // px py pz vx vy vz alpha: a checkpoint, a replay slot
 constexpr int kPartials = 10;
+constexpr int kThreads = 128;  // THREADS in march_adjoint_cuda.py
+constexpr int kMaxDevices = 64;
 constexpr double kPi = 3.14159265358979323846;
+
+// The replay array's bytes per block, and the blocks an SM holds by them
+// (228 KB of shared memory per SM, 1 KB of it reserved per block).
+template <typename T>
+constexpr int kSmem = kSeg * kVals * kThreads * (int)sizeof(T);
+template <typename T>
+constexpr int kBlocksPerSm = 233472 / (kSmem<T> + 1024);
+static_assert(kBlocksPerSm<double> >= 1 && kThreads % 32 == 0, "");
 
 template <typename T>
 struct AdjParams {
@@ -90,6 +123,12 @@ struct AdjParams {
 template <typename T>
 struct V3 {
   T x, y, z;
+};
+
+// The RK4 stage positions of one step.
+template <typename T>
+struct Stages {
+  V3<T> q2, q3, q4;
 };
 
 template <typename T>
@@ -164,6 +203,22 @@ __device__ __forceinline__ void step_fwd(const AdjParams<T>& P, T coef, T in2, T
   v = nv;
 }
 
+// The stage positions of the step from (p, v), recomputed with step_fwd's
+// arithmetic (so equal to the replay's).
+template <typename T>
+__device__ __forceinline__ Stages<T> rk4_stages(const AdjParams<T>& P, T coef, const V3<T>& p,
+                                                const V3<T>& v) {
+  Stages<T> st;
+  const V3<T> k1 = accel(coef, p);
+  st.q2 = axpy(p, P.hh, v);
+  const V3<T> u2 = axpy(v, P.hh, k1);
+  const V3<T> k2 = accel(coef, st.q2);
+  st.q3 = axpy(p, P.hh, u2);
+  const V3<T> u3 = axpy(v, P.hh, k2);
+  st.q4 = axpy(p, P.h, u3);
+  return st;
+}
+
 // q_bar = J(q)^T k_bar for J = a'(q) (symmetric); adds the stage's coef_bar.
 template <typename T>
 __device__ __forceinline__ V3<T> jtp(T coef, const V3<T>& q, const V3<T>& kb, T& cb) {
@@ -178,27 +233,20 @@ __device__ __forceinline__ V3<T> jtp(T coef, const V3<T>& q, const V3<T>& kb, T&
   return {s * kb.x + t * q.x, s * kb.y + t * q.y, s * kb.z + t * q.z};
 }
 
-// Fused-stage RK4 VJP (march_vjp.rk4_vjp), stages recomputed from (p, v).
+// Fused-stage RK4 VJP (march_vjp.rk4_vjp) at pre-position p with the
+// step's stage positions st.
 template <typename T>
 __device__ __forceinline__ void rk4_vjp(const AdjParams<T>& P, T coef, const V3<T>& p,
-                                        const V3<T>& v, const V3<T>& pbo, const V3<T>& vbo,
-                                        V3<T>& pb, V3<T>& vb, T& cb) {
-  const V3<T> k1 = accel(coef, p);
-  const V3<T> q2 = axpy(p, P.hh, v);
-  const V3<T> u2 = axpy(v, P.hh, k1);
-  const V3<T> k2 = accel(coef, q2);
-  const V3<T> q3 = axpy(p, P.hh, u2);
-  const V3<T> u3 = axpy(v, P.hh, k2);
-  const V3<T> q4 = axpy(p, P.h, u3);
-
+                                        const Stages<T>& st, const V3<T>& pbo,
+                                        const V3<T>& vbo, V3<T>& pb, V3<T>& vb, T& cb) {
   T cb1, cb2, cb3, cb4;
   const V3<T> k4b = {P.h6 * vbo.x, P.h6 * vbo.y, P.h6 * vbo.z};
-  const V3<T> q4b = jtp(coef, q4, k4b, cb4);
+  const V3<T> q4b = jtp(coef, st.q4, k4b, cb4);
   const T s2 = T(2) * P.h6;
   const V3<T> a = {P.hh6 * pbo.x + s2 * vbo.x, P.hh6 * pbo.y + s2 * vbo.y,
                    P.hh6 * pbo.z + s2 * vbo.z};
-  const V3<T> q2b = jtp(coef, q2, axpy(a, P.h_hh, q4b), cb2);
-  const V3<T> q3b = jtp(coef, q3, a, cb3);
+  const V3<T> q2b = jtp(coef, st.q2, axpy(a, P.h_hh, q4b), cb2);
+  const V3<T> q3b = jtp(coef, st.q3, a, cb3);
   const V3<T> k1b = axpy(axpy(a, -P.h6, vbo), P.hh_hh, q3b);
   const V3<T> q1b = jtp(coef, p, k1b, cb1);
 
@@ -218,12 +266,13 @@ struct Carry {
   T coef_bar, inner_bar, outer_bar, opacity_bar, rgb0_bar, rgb1_bar, rgb2_bar;
 };
 
-// Reverse of one advancing step (cont true) from its pre-state (p, v, aa) and
-// its post-position np (march_vjp.step_vjp).
+// Reverse of one advancing step (cont true) from its pre-position p, its
+// pre-step alpha aa, its post-position np and its stage positions st
+// (march_vjp.step_vjp).
 template <typename T>
 __device__ __forceinline__ void step_vjp(const AdjParams<T>& P, T coef, T in2, T out2,
-                                         const V3<T>& p, const V3<T>& v, T aa,
-                                         const V3<T>& np, Carry<T>& c) {
+                                         const V3<T>& p, T aa, const V3<T>& np,
+                                         const Stages<T>& st, Carry<T>& c) {
   V3<T> np_bar = c.pbar;
   V3<T> pbar = {T(0), T(0), T(0)};
   const V3<T> nv_bar = c.vbar;
@@ -263,22 +312,28 @@ __device__ __forceinline__ void step_vjp(const AdjParams<T>& P, T coef, T in2, T
   }
   V3<T> pb, vb;
   T cb;
-  rk4_vjp(P, coef, p, v, np_bar, nv_bar, pb, vb, cb);
+  rk4_vjp(P, coef, p, st, np_bar, nv_bar, pb, vb, cb);
   c.pbar = add(pbar, pb);
   c.vbar = vb;
   c.coef_bar = c.coef_bar + cb;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<T>)
 march_adjoint_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
                      const T* __restrict__ vz0,
-                     const T* __restrict__ cot,  // (7, n): vel xyz, RGBA
+                     const T* __restrict__ cot,         // (7, n): vel xyz, RGBA
+                     const T* __restrict__ ckpt,        // (n_seg, 7, n) from B1
+                     const int32_t* __restrict__ ray_steps,  // (n,) from B1
                      int64_t n, AdjParams<T> P,
-                     T* __restrict__ ckpt,            // (n_seg, 7, n) scratch
-                     T* __restrict__ gvel,            // (3, n) out
+                     T* __restrict__ gvel,              // (3, n) out
                      int32_t* __restrict__ status_out,  // (n,) out
                      T* __restrict__ partials) {        // (blocks, 10) out
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // This thread's column of the [kSeg][kVals][kThreads] replay array.
+  T* const col = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  auto slot = [col](int j, int k) -> T& { return col[(j * kVals + k) * kThreads]; };
+
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   T part[kPartials];
 #pragma unroll
@@ -296,27 +351,8 @@ march_adjoint_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
     const T rs2 = P.mass * P.mass;
     const T in2 = P.inner * P.inner;
     const T out2 = P.outer * P.outer;
+    const int nc = ray_steps[i];  // advancing steps
 
-    // ---- Phase A: replay to termination, checkpointing every kSeg steps.
-    V3<T> p = p0, v = v0;
-    T aa = T(0);
-    int status = kActive;
-    int nc = P.max_steps;  // advancing steps
-    for (int k = 0; k < P.max_steps; ++k) {
-      const T r2 = dot3(p, p);
-      if (r2 < rs2) { status = kHorizon; nc = k; break; }
-      if (r2 > P.safe) { status = kEscaped; nc = k; break; }
-      if (k % kSeg == 0) {
-        T* ck = ckpt + (int64_t)(k / kSeg) * kVals * n + i;
-        ck[0] = p.x; ck[n] = p.y; ck[2 * n] = p.z;
-        ck[3 * n] = v.x; ck[4 * n] = v.y; ck[5 * n] = v.z;
-        ck[6 * n] = aa;
-      }
-      step_fwd(P, coef, in2, out2, p, v, aa);
-    }
-    status_out[i] = status;
-
-    // ---- Phase B: segments newest first, replay then reverse.
     Carry<T> c;
     c.pbar = {T(0), T(0), T(0)};
     c.vbar = {cot[i], cot[n + i], cot[2 * n + i]};
@@ -327,26 +363,35 @@ march_adjoint_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
     c.coef_bar = c.inner_bar = c.outer_bar = c.opacity_bar = T(0);
     c.rgb0_bar = c.rgb1_bar = c.rgb2_bar = T(0);
 
-    T buf[kSeg + 1][kVals];
+    // Segments newest first: replay from the checkpoint into shared memory,
+    // then reverse.
+    V3<T> fin = p0;  // the state after the last advancing step
     for (int seg = (nc - 1) / kSeg; nc > 0 && seg >= 0; --seg) {
       const T* ck = ckpt + (int64_t)seg * kVals * n + i;
       V3<T> q = {ck[0], ck[n], ck[2 * n]};
       V3<T> w = {ck[3 * n], ck[4 * n], ck[5 * n]};
       T a = ck[6 * n];
       const int len = min(kSeg, nc - seg * kSeg);
-      for (int j = 0; j <= len; ++j) {
-        buf[j][0] = q.x; buf[j][1] = q.y; buf[j][2] = q.z;
-        buf[j][3] = w.x; buf[j][4] = w.y; buf[j][5] = w.z;
-        buf[j][6] = a;
-        if (j < len) step_fwd(P, coef, in2, out2, q, w, a);
+      for (int j = 0; j < len; ++j) {
+        slot(j, 0) = q.x; slot(j, 1) = q.y; slot(j, 2) = q.z;
+        slot(j, 3) = w.x; slot(j, 4) = w.y; slot(j, 5) = w.z;
+        slot(j, 6) = a;
+        step_fwd(P, coef, in2, out2, q, w, a);
       }
+      if (seg * kSeg + len == nc) fin = q;
+      V3<T> post = q;
       for (int j = len - 1; j >= 0; --j) {
-        const V3<T> pp = {buf[j][0], buf[j][1], buf[j][2]};
-        const V3<T> pv = {buf[j][3], buf[j][4], buf[j][5]};
-        const V3<T> post = {buf[j + 1][0], buf[j + 1][1], buf[j + 1][2]};
-        step_vjp(P, coef, in2, out2, pp, pv, buf[j][6], post, c);
+        const V3<T> pp = {slot(j, 0), slot(j, 1), slot(j, 2)};
+        const Stages<T> st = rk4_stages(P, coef, pp, V3<T>{slot(j, 3), slot(j, 4), slot(j, 5)});
+        step_vjp(P, coef, in2, out2, pp, slot(j, 6), post, st, c);
+        post = pp;
       }
     }
+    const T r2f = dot3(fin, fin);
+    status_out[i] = nc == P.max_steps ? kActive
+                    : r2f < rs2       ? kHorizon
+                    : r2f > P.safe    ? kEscaped
+                                      : kActive;
 
     // ---- Close the h^2 chain: coef = -1.5 mass h^2; h^2 = |p0 x v0|^2.
     const T h2_bar = T(-1.5) * P.mass * c.coef_bar;
@@ -367,29 +412,33 @@ march_adjoint_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
   }
 
   // Block sums of the partials in a fixed order (warp tree, then warps in
-  // order); every thread of the block reaches this point.
-  __shared__ T warp_sum[kThreads / 32][kPartials];
+  // order) through the replay array, once every thread of the block is done
+  // with its column; every thread of the block reaches this point.
 #pragma unroll
   for (int k = 0; k < kPartials; ++k) {
-    T s = part[k];
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5][k] = s;
+    for (int off = 16; off > 0; off >>= 1) part[k] += __shfl_down_sync(0xffffffffu, part[k], off);
+  }
+  T* const warp_sum = reinterpret_cast<T*>(smem_raw);  // [warp][kPartials]
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < kPartials; ++k) warp_sum[(threadIdx.x >> 5) * kPartials + k] = part[k];
   }
   __syncthreads();
   if (threadIdx.x < kPartials) {
-    T s = warp_sum[0][threadIdx.x];
-    for (int w = 1; w < kThreads / 32; ++w) s += warp_sum[w][threadIdx.x];
+    T s = warp_sum[threadIdx.x];
+    for (int w = 1; w < kThreads / 32; ++w) s += warp_sum[w * kPartials + threadIdx.x];
     partials[(int64_t)blockIdx.x * kPartials + threadIdx.x] = s;
   }
 }
 
 template <typename T>
-int launch(const void* vx, const void* vy, const void* vz, const void* cot, int64_t n,
-           double h, double hh, double h6, double hh6, double h_hh, double hh_hh,
-           double mass, double safe, double inner, double outer, double opacity,
-           double disk_r, double disk_g, double disk_b, double p0x, double p0y,
-           double p0z, int max_steps, int disk_on, void* ckpt, void* gvel,
-           void* status, void* partials, void* stream) {
+int launch(const void* vx, const void* vy, const void* vz, const void* cot, const void* ckpt,
+           const void* ray_steps, int64_t n, double h, double hh, double h6, double hh6,
+           double h_hh, double hh_hh, double mass, double safe, double inner, double outer,
+           double opacity, double disk_r, double disk_g, double disk_b, double p0x,
+           double p0y, double p0z, int max_steps, int disk_on, void* gvel, void* status,
+           void* partials, void* stream) {
   AdjParams<T> P;
   P.h = T(h); P.hh = T(hh); P.h6 = T(h6);
   P.hh6 = T(hh6); P.h_hh = T(h_hh); P.hh_hh = T(hh_hh);
@@ -399,10 +448,30 @@ int launch(const void* vx, const void* vy, const void* vz, const void* cot, int6
   P.p0x = T(p0x); P.p0y = T(p0y); P.p0z = T(p0z);
   P.max_steps = max_steps;
   P.disk_on = disk_on;
+  // Above 48 KB a block's dynamic shared memory must be allowed explicitly;
+  // the carveout gives the SM's L1 / shared split to shared memory. Set once
+  // per device (a failure is returned on every launch).
+  static cudaError_t attr_err[kMaxDevices];
+  static bool attr_set[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(march_adjoint_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<T>);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(march_adjoint_kernel<T>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    attr_err[dev] = err;
+    attr_set[dev] = true;
+  }
+  if (attr_err[dev] != cudaSuccess) return (int)attr_err[dev];
   const int64_t blocks = (n + kThreads - 1) / kThreads;
-  march_adjoint_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)vx, (const T*)vy, (const T*)vz, (const T*)cot, n, P, (T*)ckpt,
-      (T*)gvel, (int32_t*)status, (T*)partials);
+  march_adjoint_kernel<T><<<(unsigned)blocks, kThreads, kSmem<T>, (cudaStream_t)stream>>>(
+      (const T*)vx, (const T*)vy, (const T*)vz, (const T*)cot, (const T*)ckpt,
+      (const int32_t*)ray_steps, n, P, (T*)gvel, (int32_t*)status, (T*)partials);
   return (int)cudaGetLastError();
 }
 
@@ -410,17 +479,17 @@ int launch(const void* vx, const void* vy, const void* vz, const void* cot, int6
 
 extern "C" {
 
-#define BS_ADJ_ARGS                                                                  \
-  const void *vx, const void *vy, const void *vz, const void *cot, int64_t n,        \
-      double h, double hh, double h6, double hh6, double h_hh, double hh_hh,         \
-      double mass, double safe, double inner, double outer, double opacity,          \
-      double disk_r, double disk_g, double disk_b, double p0x, double p0y,           \
-      double p0z, int max_steps, int disk_on, void *ckpt, void *gvel, void *status,  \
+#define BS_ADJ_ARGS                                                                    \
+  const void *vx, const void *vy, const void *vz, const void *cot, const void *ckpt,   \
+      const void *ray_steps, int64_t n, double h, double hh, double h6, double hh6,    \
+      double h_hh, double hh_hh, double mass, double safe, double inner, double outer, \
+      double opacity, double disk_r, double disk_g, double disk_b, double p0x,         \
+      double p0y, double p0z, int max_steps, int disk_on, void *gvel, void *status,    \
       void *partials, void *stream
-#define BS_ADJ_PASS                                                                  \
-  vx, vy, vz, cot, n, h, hh, h6, hh6, h_hh, hh_hh, mass, safe, inner, outer,         \
-      opacity, disk_r, disk_g, disk_b, p0x, p0y, p0z, max_steps, disk_on, ckpt,      \
-      gvel, status, partials, stream
+#define BS_ADJ_PASS                                                                    \
+  vx, vy, vz, cot, ckpt, ray_steps, n, h, hh, h6, hh6, h_hh, hh_hh, mass, safe, inner, \
+      outer, opacity, disk_r, disk_g, disk_b, p0x, p0y, p0z, max_steps, disk_on, gvel,  \
+      status, partials, stream
 
 int bs_march_adjoint_f32(BS_ADJ_ARGS) { return launch<float>(BS_ADJ_PASS); }
 int bs_march_adjoint_f64(BS_ADJ_ARGS) { return launch<double>(BS_ADJ_PASS); }

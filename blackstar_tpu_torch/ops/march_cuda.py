@@ -21,7 +21,7 @@ import torch
 
 from blackstar_tpu_torch.color import hsi_to_rgb
 from blackstar_tpu_torch.config import SceneParams, StaticConfig
-from blackstar_tpu_torch.geodesic import MarchResult, march
+from blackstar_tpu_torch.geodesic import CKPT_VALUES, MarchResult, march, n_segments
 from blackstar_tpu_torch.ops import _build
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "march.cu")
@@ -31,7 +31,7 @@ FLAGS = ("-fmad=false",)
 
 _P, _D = ctypes.c_void_p, ctypes.c_double
 _ARGTYPES = ([_P, _P, _P, ctypes.c_int64] + [_D] * 14
-             + [ctypes.c_int, ctypes.c_int] + [_P] * 5)
+             + [ctypes.c_int, ctypes.c_int] + [_P] * 6)
 _ENTRY = {torch.float32: "bs_march_f32", torch.float64: "bs_march_f64"}
 
 
@@ -48,23 +48,28 @@ def build() -> ctypes.CDLL:
 
 def march_cuda(pos0: torch.Tensor, vel0, params: SceneParams,
                static: StaticConfig, safe_distance: torch.Tensor, *,
-               ray_steps: Optional[torch.Tensor] = None) -> MarchResult:
+               ray_steps: Optional[torch.Tensor] = None,
+               checkpoints: Optional[torch.Tensor] = None) -> MarchResult:
     """March rays to termination: kernel B1 on a CUDA device, the plain
     march on the CPU.
 
     ``pos0``: (3,) shared camera position; ``vel0``: three flat (N,)
     direction planes (``camera.generate_ray_components``) or an (N, 3)
-    array. ``ray_steps``, an (N,) int32
-    tensor on the card, receives each ray's count of advancing RK4 steps
-    (a measurement aid that only the kernel keeps). The result's
-    ``acc_rgba`` and ``vel`` are (N, 4) and (N, 3) views of the kernel's
-    plane-major output.
+    array. Two optional outputs, written by the kernel on the card:
+    ``ray_steps``, an (N,) int32 tensor, receives each ray's count of
+    advancing RK4 steps; ``checkpoints``, an (n_segments, 7, N) tensor of
+    the march's dtype, selects B1's checkpointing variant, which writes
+    what the adjoint kernel B2 starts from (the entries
+    ``geodesic.march_checkpointed`` gives, where a ray reached them; the
+    rest are left as they were). The result's ``acc_rgba`` and ``vel`` are
+    (N, 4) and (N, 3) views of the kernel's plane-major output.
     """
     planes = tuple(vel0) if isinstance(vel0, (tuple, list)) else tuple(vel0.unbind(-1))
     dev = planes[0].device
     if dev.type == "cpu":
-        if ray_steps is not None:
-            raise ValueError("march_cuda: ray_steps is counted by the kernel, on a CUDA device")
+        if ray_steps is not None or checkpoints is not None:
+            raise ValueError("march_cuda: ray_steps and checkpoints are written by the kernel, "
+                             "on a CUDA device")
         return march(pos0, torch.stack(planes, dim=-1), params, static, safe_distance)
     if dev.type != "cuda":
         raise ValueError(f"march_cuda: unsupported device {dev}")
@@ -80,9 +85,11 @@ def march_cuda(pos0: torch.Tensor, vel0, params: SceneParams,
     out = torch.empty((7, n), dtype=dt, device=dev)
     status = torch.empty((n,), dtype=torch.int32, device=dev)
     steps = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if ray_steps is not None and (ray_steps.shape != (n,) or ray_steps.dtype != torch.int32
-                                  or ray_steps.device != dev or not ray_steps.is_contiguous()):
-        raise ValueError("march_cuda: ray_steps must be a contiguous (N,) int32 tensor on the rays' device")
+    if ray_steps is not None:
+        _build.check_tensor("march_cuda: ray_steps", ray_steps, (n,), torch.int32, dev)
+    if checkpoints is not None:
+        _build.check_tensor("march_cuda: checkpoints", checkpoints,
+                            (n_segments(static.max_steps), CKPT_VALUES, n), dt, dev)
     if n:
         disk = params.disk
         # The step and its half and sixth, evaluated on the host exactly as
@@ -101,6 +108,7 @@ def march_cuda(pos0: torch.Tensor, vel0, params: SceneParams,
                   static.max_steps, int(static.disk_on),
                   out.data_ptr(), status.data_ptr(), steps.data_ptr(),
                   0 if ray_steps is None else ray_steps.data_ptr(),
+                  0 if checkpoints is None else checkpoints.data_ptr(),
                   _build.stream_handle(dev))
         _build.check(code, "march kernel")
         march_cuda.launches += 1

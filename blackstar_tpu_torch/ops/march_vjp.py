@@ -19,7 +19,9 @@ step's half and sixth rounded on the host — where the JAX package took
 ``r⁻⁵`` by ``rsqrt`` powers. So a replayed ray takes the path the forward
 rendered, bit for bit, in float32 as in float64, and the gradient is the
 gradient of that frame. The VJP formulas follow the JAX package's as
-written. :func:`march_adjoint_reference` is what B2 computes.
+written. :func:`march_adjoint_reference` is the adjoint from nothing but
+the march's inputs; :func:`march_adjoint_from_checkpoints` computes the same
+gradients from the forward march's checkpoints, as B2 does.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from blackstar_tpu_torch.geodesic import ACTIVE
+from blackstar_tpu_torch.geodesic import ACTIVE, ESCAPED, HORIZON, SEG_LEN
 
 
 class Dot3(NamedTuple):
@@ -315,12 +317,9 @@ class AdjointGrads(NamedTuple):
     status: torch.Tensor  # (N,) int32, as the forward march classified
 
 
-def _adjoint_chunk(pos0, v0, cot_acc, cot_vel, hs, max_steps, disk_on, mass, inner,
-                   outer, opacity, disk_rgb, safe):
-    """Adjoint of one batch of rays: per-ray vel0̄ (n, 3), the 10 per-ray
-    partials summed over the batch, and the replayed status."""
-    n = v0.shape[0]
-    p0b = pos0.expand(n, 3)
+def _consts(p0b, v0, hs, mass, inner, outer, opacity, disk_rgb, safe):
+    """The march constants of a batch of rays, and the angular-momentum
+    cross product ``c = p0×v0`` with ``h² = |c|²`` that the adjoint closes."""
     cx = p0b[:, 1] * v0[:, 2] - p0b[:, 2] * v0[:, 1]
     cy = p0b[:, 2] * v0[:, 0] - p0b[:, 0] * v0[:, 2]
     cz = p0b[:, 0] * v0[:, 1] - p0b[:, 1] * v0[:, 0]
@@ -332,31 +331,23 @@ def _adjoint_chunk(pos0, v0, cot_acc, cot_vel, hs, max_steps, disk_on, mass, inn
         inner=inner, outer=outer, opacity=opacity,
         rgb0=disk_rgb[0], rgb1=disk_rgb[1], rgb2=disk_rgb[2],
     )
+    return c, (cx, cy, cz, h2)
 
-    # Forward replay, storing every pre-step state. It stops once every ray
-    # of the batch has terminated: later steps are the identity for the
-    # adjoint (cont is false, no cotangent flows through them).
-    state = (Dot3(*p0b.unbind(-1)), Dot3(*v0.unbind(-1)),
-             torch.zeros((n,), dtype=v0.dtype, device=v0.device),
-             torch.zeros((n,), dtype=torch.int32, device=v0.device))
-    pres = []
-    while len(pres) < max_steps and bool((state[3] == ACTIVE).any()):
-        pres.append(state)
-        state = step_primal(*state, c, disk_on=disk_on)
-    status = state[3]
 
-    zero = torch.zeros((n,), dtype=v0.dtype, device=v0.device)
-    carry = AdjointCarry(
+def _initial_carry(cot_acc, cot_vel) -> AdjointCarry:
+    zero = torch.zeros_like(cot_vel[:, 0])
+    return AdjointCarry(
         pbar=Dot3(zero, zero, zero), vbar=Dot3(*cot_vel.unbind(-1)),
         arbar=cot_acc[:, 0], agbar=cot_acc[:, 1], abbar=cot_acc[:, 2], aabar=cot_acc[:, 3],
         coef_bar=zero, inner_bar=zero, outer_bar=zero, opacity_bar=zero,
         rgb0_bar=zero, rgb1_bar=zero, rgb2_bar=zero,
     )
-    post_p = state[0]
-    for p, v, acc_a, st in reversed(pres):
-        carry = step_vjp(p, v, acc_a, st, c, carry, disk_on=disk_on, post_p=post_p)
-        post_p = p
 
+
+def _close(carry: AdjointCarry, p0b, v0, mass, cross):
+    """Close the ``h²`` chain: per-ray vel0̄ (n, 3) and the 10 partials
+    summed over the rays."""
+    cx, cy, cz, h2 = cross
     # coef = −1.5·mass·h²;  h² = |p0×v0|²:  v̄0 += 2·h̄2·(c×p0), p̄0 += 2·h̄2·(v0×c)
     h2_bar = -1.5 * mass * carry.coef_bar
     v0bar = torch.stack([
@@ -373,7 +364,41 @@ def _adjoint_chunk(pos0, v0, cot_acc, cot_vel, hs, max_steps, disk_on, mass, inn
         -1.5 * h2 * carry.coef_bar, carry.inner_bar, carry.outer_bar, carry.opacity_bar,
         carry.rgb0_bar, carry.rgb1_bar, carry.rgb2_bar, *p0bar,
     ]).sum(dim=1)
+    return v0bar, partials
+
+
+def _adjoint_chunk(pos0, v0, cot_acc, cot_vel, hs, max_steps, disk_on, mass, inner,
+                   outer, opacity, disk_rgb, safe):
+    """Adjoint of one batch of rays: per-ray vel0̄ (n, 3), the 10 per-ray
+    partials summed over the batch, and the replayed status."""
+    n = v0.shape[0]
+    p0b = pos0.expand(n, 3)
+    c, cross = _consts(p0b, v0, hs, mass, inner, outer, opacity, disk_rgb, safe)
+
+    # Forward replay, storing every pre-step state. It stops once every ray
+    # of the batch has terminated: later steps are the identity for the
+    # adjoint (cont is false, no cotangent flows through them).
+    state = (Dot3(*p0b.unbind(-1)), Dot3(*v0.unbind(-1)),
+             torch.zeros((n,), dtype=v0.dtype, device=v0.device),
+             torch.zeros((n,), dtype=torch.int32, device=v0.device))
+    pres = []
+    while len(pres) < max_steps and bool((state[3] == ACTIVE).any()):
+        pres.append(state)
+        state = step_primal(*state, c, disk_on=disk_on)
+    status = state[3]
+
+    carry = _initial_carry(cot_acc, cot_vel)
+    post_p = state[0]
+    for p, v, acc_a, st in reversed(pres):
+        carry = step_vjp(p, v, acc_a, st, c, carry, disk_on=disk_on, post_p=post_p)
+        post_p = p
+
+    v0bar, partials = _close(carry, p0b, v0, mass, cross)
     return v0bar, partials, status
+
+
+def _as_tensors(like, *values):
+    return (torch.as_tensor(t, dtype=like.dtype, device=like.device) for t in values)
 
 
 def march_adjoint_reference(pos0, vel0, *, h: float, max_steps: int, mass, inner, outer,
@@ -392,9 +417,8 @@ def march_adjoint_reference(pos0, vel0, *, h: float, max_steps: int, mass, inner
     dt = vel0.dtype
     dev = vel0.device
     hs = step_scalars(h, dt)
-    pos0, mass, inner, outer, opacity, disk_rgb, safe = (
-        torch.as_tensor(t, dtype=dt, device=dev)
-        for t in (pos0, mass, inner, outer, opacity, disk_rgb, safe))
+    pos0, mass, inner, outer, opacity, disk_rgb, safe = _as_tensors(
+        vel0, pos0, mass, inner, outer, opacity, disk_rgb, safe)
     cot_acc = cot_acc.to(dt)
     cot_vel = cot_vel.to(dt)
     n = vel0.shape[0]
@@ -417,3 +441,68 @@ def march_adjoint_reference(pos0, vel0, *, h: float, max_steps: int, mass, inner
 
 
 march_adjoint_reference.calls = 0  # plain-path call count: shows which adjoint a run took
+
+
+def march_adjoint_from_checkpoints(pos0, vel0, checkpoints, ray_steps, *, h: float,
+                                   max_steps: int, mass, inner, outer, opacity, disk_rgb,
+                                   safe, disk_on: bool, cot_acc, cot_vel) -> AdjointGrads:
+    """:func:`march_adjoint_reference` computed as kernel B2 computes it:
+    from the checkpoints and advancing-step counts of the forward march
+    (``geodesic.march_checkpointed``, or the march kernel's checkpointing
+    variant), with B2's segment boundaries.
+
+    Segments go newest first. Each is replayed from its checkpoint, at most
+    ``SEG_LEN`` steps, and reversed over the steps that advanced its rays
+    (step ``SEG_LEN·s + j`` of ray i advances iff it is below
+    ``ray_steps[i]``); every other step is the identity for the adjoint, so
+    the per-ray gradients equal :func:`march_adjoint_reference`'s bit for
+    bit. ``status`` classifies each ray's replayed final state, as the
+    forward march did: truncated (ACTIVE) at ``max_steps`` advancing steps,
+    else HORIZON or ESCAPED. Arguments as :func:`march_adjoint_reference`,
+    plus ``checkpoints`` (n_segments, 7, N) and ``ray_steps`` (N,).
+    """
+    march_adjoint_from_checkpoints.calls += 1
+    dt = vel0.dtype
+    n = vel0.shape[0]
+    pos0, mass, inner, outer, opacity, disk_rgb, safe = _as_tensors(
+        vel0, pos0, mass, inner, outer, opacity, disk_rgb, safe)
+    p0b = pos0.expand(n, 3)
+    c, cross = _consts(p0b, vel0, step_scalars(h, dt), mass, inner, outer, opacity,
+                       disk_rgb, safe)
+    carry = _initial_carry(cot_acc.to(dt), cot_vel.to(dt))
+    nc = ray_steps.long()
+    p0, v0 = Dot3(*p0b.unbind(-1)), Dot3(*vel0.unbind(-1))
+    zero = torch.zeros_like(vel0[:, 0])
+    final_p = p0  # the state after a ray's last advancing step
+    n_max = int(nc.max()) if n else 0
+    for seg in range((n_max - 1) // SEG_LEN, -1, -1):
+        start = seg * SEG_LEN
+        # Rays that never reach this segment replay from the camera: any
+        # finite state will do, no cotangent flows through it.
+        reached = nc > start
+        ck = checkpoints[seg]
+        p = Dot3(*(torch.where(reached, ck[k], p0[k]) for k in range(3)))
+        v = Dot3(*(torch.where(reached, ck[3 + k], v0[k]) for k in range(3)))
+        acc_a = torch.where(reached, ck[6], zero)
+        pres = []
+        for j in range(min(SEG_LEN, n_max - start)):
+            st = torch.where(nc > start + j, ACTIVE, ESCAPED).to(torch.int32)
+            pres.append((p, v, acc_a, st))
+            p, v, acc_a, _ = step_primal(p, v, acc_a, st, c, disk_on=disk_on)
+        newest = reached & (nc <= start + SEG_LEN)
+        final_p = Dot3(*(torch.where(newest, a, b) for a, b in zip(p, final_p)))
+        post_p = p
+        for pp, pv, pa, st in reversed(pres):
+            carry = step_vjp(pp, pv, pa, st, c, carry, disk_on=disk_on, post_p=post_p)
+            post_p = pp
+
+    r2 = final_p.dot(final_p)
+    status = torch.where(r2 < c.rs2, HORIZON, torch.where(r2 > c.safe, ESCAPED, ACTIVE))
+    status = torch.where(nc == max_steps, ACTIVE, status).to(torch.int32)
+    v0bar, partials = _close(carry, p0b, vel0, mass, cross)
+    return AdjointGrads(pos0=partials[7:10], vel0=v0bar, mass=partials[0], inner=partials[1],
+                        outer=partials[2], opacity=partials[3], disk_rgb=partials[4:7],
+                        status=status)
+
+
+march_adjoint_from_checkpoints.calls = 0  # plain-path call count

@@ -10,7 +10,9 @@ phase exits non-zero):
 
 1. the card: CUDA must be available; print versions and the card's name
    and power limit;
-2. build the five kernel sources in the checkout, in parallel;
+2. build the five kernel sources in the checkout in parallel, with B1's
+   and B2's cubins under ``-Xptxas -v`` (registers, stack, spills) beside
+   them;
 3. the march kernel B1 against the plain march on the card, default scene
    at 480×270, in float64 and float32;
 4. the star kernel B3 against the plain lookup on the card, the full
@@ -20,12 +22,16 @@ phase exits non-zero):
    float32 with stars and bloom; both kernels must carry it (launch counts
    > 0, plain call counts 0) with no truncated ray; then warm per-frame
    times of the render, each kernel and each plain version at the frame's
-   shapes, with each kernel held to its plain version there too;
+   shapes, with each kernel held to its plain version there too, and the
+   share of useful lanes in B1's warps from its per-ray step counts;
 6. a float64 64×36 render through the kernels against the committed
    float64-oracle golden at 1e-7;
-7. the march adjoint kernel B2 against the plain hand-derived adjoint on the
-   card, default scene at 480×270 with seeded random cotangents, in float64
-   and float32;
+7. default scene at 480×270 in float64 and float32: B1's checkpointing
+   variant (its outputs unchanged; its checkpoints and step counts equal
+   the plain checkpointing march's bit for bit), and the march adjoint
+   kernel B2, fed those checkpoints, against the plain hand-derived adjoint
+   from nothing and from the same checkpoints with seeded random
+   cotangents (per-ray gradients bit-equal, statuses equal B1's);
 8. the star VJP kernel B4 against the plain star VJP, the full 470k-star
    grid and the escaped rays of the 1920×1080 frame with seeded random
    cotangents, in float64 and float32;
@@ -36,7 +42,10 @@ phase exits non-zero):
    finite, the loss falling and ``disk.outer`` moving toward 12.5;
 10. times at the 1080p training shapes: a warm training step with every
    leaf trainable (forward, forward + backward, the whole step), its
-   device-time profile and peak memory, and B2 and B4 (kernel, wrapper,
+   device-time profile (``scripts/step_profile.py``) and peak memory; B1's
+   checkpointing variant held to the plain checkpointing march and timed
+   against the frame variant in turns, with B1's registers and stack; B2
+   (with its registers, stack and shared memory) and B4 (kernel, wrapper,
    plain version, each kernel held to its plain version there);
 11. the windowed star stage's kernels K1 and K2 against their plain
    versions on the prototype's synthetic grid, fed the same pre-pass
@@ -62,6 +71,7 @@ per call as the main path calls it (CUDA events), ``kernel_ms`` the
 kernel's own device time (torch.profiler), ``plain_ms`` the plain version's
 time per call, all at the 1080p shapes (for the probe kernels: their
 largest size, and ``library_ms`` the PyTorch call that computes the same);
+B1's ``ckpt_ms`` / ``ckpt_kernel_ms`` are its checkpointing variant's;
 ``launches`` the count in the fit CLI's run (``launches_render``: in the
 render CLI's run; K1, K2 and the probe kernels: in their entry points'
 runs); ``bound_ms`` the least time the card could take for the same work on
@@ -72,7 +82,6 @@ over 67 TFLOP/s, float32 without tensor cores).
 import concurrent.futures
 import contextlib
 import dataclasses
-import functools
 import glob
 import io
 import json
@@ -136,22 +145,26 @@ def _host_ms(fn, reps):
 
 
 def _kernel_ms(fn, kernel_name, reps):
-    """Device milliseconds per call of the CUDA kernel whose name contains
+    """Device milliseconds per launch of the CUDA kernel whose name contains
     ``kernel_name``, from torch.profiler over ``reps`` warm calls of ``fn``
-    (the kernel alone, without its wrapper's host work)."""
-    from torch.profiler import ProfilerActivity, profile
+    (the kernel alone, without its wrapper's host work; ``fn`` launches it
+    once), read as the training step's profile is read. The profiler can
+    drop a short kernel's events: the profile is taken again, up to three
+    times, until it keeps every launch, and the time is averaged over the
+    launches it kept."""
+    from blackstar_tpu_torch.scripts import step_profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                for e in prof.key_averages() if kernel_name in e.key)
-    if total <= 0:
+    for _ in range(3):
+        prof = step_profile.profile_steps(fn, reps)
+        hits = [v for name, v in prof["by_kernel"].items() if kernel_name in name]
+        kept = sum(n for _, n in hits)
+        if kept == reps:
+            break
+    if kept == 0:
         raise AssertionError(f"the profiler saw no device time for {kernel_name}")
-    return total / reps / 1e3
+    if kept != reps:
+        print(f"  (the profiler kept {kept} of {reps} launches of {kernel_name})")
+    return sum(ms for ms, _ in hits) * reps / kept
 
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes per
@@ -238,6 +251,32 @@ def _check_march(ker, ref, dtype):
     return rgba_err, frac
 
 
+def _ckpt_buffers(static, n, dev):
+    """Empty checkpoints and advancing counts for B1's checkpointing variant."""
+    from blackstar_tpu_torch.geodesic import CKPT_VALUES, n_segments
+
+    return (torch.empty((n_segments(static.max_steps), CKPT_VALUES, n), dtype=static.tdtype,
+                        device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))
+
+
+def _check_checkpoints(ckpt, ray_steps, plain, dtype):
+    """Hold B1's checkpoints (the entries it wrote) and advancing counts to
+    the plain checkpointing march's, bit for bit."""
+    from blackstar_tpu_torch.geodesic import SEG_LEN
+
+    if not torch.equal(ray_steps, plain.ray_steps):
+        raise AssertionError(f"{dtype}: B1's ray_steps differ from the plain march's on "
+                             f"{int((ray_steps != plain.ray_steps).sum())} rays")
+    starts = torch.arange(ckpt.shape[0], device=ckpt.device) * SEG_LEN
+    written = (ray_steps[None, :] > starts[:, None])[:, None, :]
+    if not torch.equal(torch.where(written, ckpt, 0), plain.checkpoints):
+        raise AssertionError(f"{dtype}: B1's checkpoints differ from the plain march's")
+    print(f"  {dtype}: B1's checkpoints ({int(written.sum())} of {ckpt.shape[0]} x "
+          f"{ckpt.shape[2]} written) and ray_steps (sum {int(ray_steps.sum())}) equal the "
+          "plain checkpointing march's bit for bit")
+
+
 def _check_stars(ker, ref, dtype):
     """Hold B3's colours to the plain lookup's; returns the max error."""
     diff = (ker - ref).abs()
@@ -281,16 +320,20 @@ def _close_enough(what, got, want, rtol, atol_rel):
 
 
 def _check_adjoint(ker, ref, fwd_status, dtype):
-    """Hold B2's gradients to the plain adjoint's: per ray on the rays whose
-    replayed status agrees, and the 10 scalar partials. B2's replay must
-    classify every ray as the forward kernel B1 did. Returns the max error
-    of the per-ray gradients."""
+    """Hold B2's gradients to the plain adjoint's: per ray bit for bit on
+    the rays whose replayed status agrees, and the 10 scalar partials within
+    the gates. B2's replay must classify every ray as the forward kernel B1
+    did. Returns the max error of the per-ray gradients."""
     if not torch.equal(ker.status, fwd_status):
         raise AssertionError("B2's replayed statuses differ from B1's forward statuses")
     mismatch = ker.status != ref.status
     frac = mismatch.float().mean().item()
     ok = ~mismatch
     gk, gr = ker.vel0[ok], ref.vel0[ok]
+    n_diff = int((gk != gr).any(dim=-1).sum())
+    if n_diff:
+        raise AssertionError(f"{dtype}: B2's vel0 gradients differ from the plain adjoint's on "
+                             f"{n_diff} rays")
     scalars = ("pos0", "mass", "inner", "outer", "opacity", "disk_rgb")
     if dtype == "float64":  # tests/test_march_adjoint.py's rtol, floor 1e-12·max|g|
         if frac > 1e-4:
@@ -308,7 +351,7 @@ def _check_adjoint(ker, ref, fwd_status, dtype):
                       1e-12 if dtype == "float64" else 2e-5 / max(r.abs().max().item(), 1e-30))
         rel[name] = ((k - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
     print(f"  {dtype}: {ref.status.numel()} rays, status mismatches {int(mismatch.sum())}, "
-          f"max |d vel0| {err:.3g} (max |vel0 grad| {gr.abs().max().item():.3g}); "
+          f"per-ray gradients bit-equal, max |vel0 grad| {gr.abs().max().item():.3g}; "
           "scalar rel. errors " + ", ".join(f"{k} {v:.2g}" for k, v in rel.items()))
     print("    scalars (kernel): " + ", ".join(
         f"{k} {getattr(ker, k).double().cpu().numpy().round(6).tolist()}" for k in scalars))
@@ -354,15 +397,16 @@ def main():
     from blackstar_tpu_torch.fit import image_loss, init_train_state, make_train_step
     from blackstar_tpu_torch.geodesic import ESCAPED
     from blackstar_tpu_torch.imageio import encode_rgb8, read_png, write_png
-    from blackstar_tpu_torch.ops import _build
     from blackstar_tpu_torch.ops import march_adjoint_cuda as b2
     from blackstar_tpu_torch.ops import march_cuda as b1
     from blackstar_tpu_torch.ops.filters import bloom
-    from blackstar_tpu_torch.ops.march_vjp import march_adjoint_reference
+    from blackstar_tpu_torch.ops.march_vjp import (march_adjoint_from_checkpoints,
+                                                   march_adjoint_reference)
     from blackstar_tpu_torch.render import render, render_image, safe_distance
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.artifact import ensure_star_grid
     from blackstar_tpu_torch.stars.grid import StarGrid, load_star_grid_compact
+    from blackstar_tpu_torch.scripts import kernel_sass, step_profile
     from blackstar_tpu_torch.scripts import probe_dynamic_gather as probe
     from blackstar_tpu_torch.scripts import proto_window_kernel as proto
     from blackstar_tpu_torch.stars import window
@@ -377,21 +421,20 @@ def main():
     print(card)
 
     # ---- 2. build ------------------------------------------------------
-    # One nvcc per source, all started together; beside them the same
-    # sources with `-Xptxas -v` for the registers and spills of each kernel.
+    # One nvcc per source, all started together; beside them B1's and B2's
+    # cubins with `-Xptxas -v`, for their registers, stack and spills.
     _banner("2. build")
     t0 = time.perf_counter()
     jobs = {"B1 march": b1.build, "B2 march adjoint": b2.build,
             "B3 star lookup + B4 star VJP": b3.build, "K1 + K2 windowed stage": wk.build,
             "gather probe": probe.build}
-    jobs.update({f"ptxas -v {os.path.basename(m.SOURCE)}":
-                 functools.partial(_build.load, m.SOURCE, m.FLAGS + ("-Xptxas", "-v"))
-                 for m in (b1, b2, b3, wk, probe)})
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {name: pool.submit(fn) for name, fn in jobs.items()}
-        for name, fut in futures.items():
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as pool:
+        futures = [pool.submit(fn) for fn in jobs.values()]
+        cubins = {m: pool.submit(kernel_sass.compile_cubin, m.SOURCE, m.FLAGS) for m in (b1, b2)}
+        for fut in futures:
             fut.result()
-    print(f"  {len(jobs)} builds in {time.perf_counter() - t0:.1f} s")
+        ptxas = {m: kernel_sass.resources(fut.result()[0]) for m, fut in cubins.items()}
+    print(f"  {len(jobs)} builds and {len(ptxas)} cubins in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. B1 against the plain march, 480×270 ------------------------
     _banner("3. B1 march kernel vs plain march, default scene 480x270")
@@ -505,6 +548,18 @@ def main():
     b1_bound = _bound(n_rays * (10 * 4 + 4), frame_steps * MARCH_OPS_PER_STEP)
     print(f"  B1 work: {frame_steps} advancing ray-steps ({frame_steps / n_rays:.1f} per ray), "
           f"bound {b1_bound[0]:.3f} ms by {b1_bound[1]}")
+    # Useful lanes: the steps the rays need over the steps their group runs
+    # (each lane as long as the group's longest ray), pixels in row-major order.
+    def useful_share(steps, g):
+        return frame_steps / (g * steps.view(-1, g).max(dim=1).values.double().sum().item())
+
+    q = torch.quantile(ray_steps[::16].double(), torch.tensor([0.1, 0.9], device=dev, dtype=torch.float64))
+    print(f"  useful lanes: warps of 32 neighbouring pixels {useful_share(ray_steps, 32):.4f}, "
+          f"blocks of 128 {useful_share(ray_steps, 128):.4f}, warps of rays sorted by steps "
+          f"{useful_share(ray_steps.sort().values, 32):.4f}; steps per ray: mean "
+          f"{frame_steps / n_rays:.1f}, p10/p90 {q[0].item():.0f}/{q[1].item():.0f}, max "
+          f"{int(ray_steps.max())}; truncated {int((ray_steps == static.max_steps).sum())}; "
+          f"horizon share {(ker.status == geodesic.HORIZON).double().mean().item():.4f}")
 
     escaped = ker.status == ESCAPED
     inten, sat = params.stars.intensity, params.stars.saturation
@@ -564,8 +619,9 @@ def main():
     print(f"  max |d| vs {os.path.relpath(goldens[0], ROOT)}: {gold_err:.3g} (limit 1e-7)")
     torch.testing.assert_close(img, want, rtol=0, atol=1e-7)
 
-    # ---- 7. B2 against the plain adjoint, 480×270 ----------------------
-    _banner("7. B2 march adjoint kernel vs plain adjoint, default scene 480x270")
+    # ---- 7. B1's checkpoints and B2 against the plain versions, 480×270 -
+    _banner("7. B1 checkpointing variant vs plain checkpointing march; B2 march adjoint "
+            "kernel, fed B1's checkpoints, vs plain adjoints; default scene 480x270")
     rng = np.random.default_rng(7)
     n_small = 480 * 270
     cot_np = (rng.normal(size=(n_small, 4)), rng.normal(size=(n_small, 3)))
@@ -574,16 +630,30 @@ def main():
         params, static = cfg.params(dev), cfg.static()
         dt = static.tdtype
         pos0, planes = generate_ray_components(params.camera, 480, 270, dtype=dt)
+        stacked = torch.stack(planes, dim=-1)
         kw = _adjoint_args(params, static)
         fwd = b1.march_cuda(pos0, planes, params, static, kw["safe"])
-        cot_acc, cot_vel = (torch.from_numpy(c).to(dev, dt) for c in cot_np)
-        ker = b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static, **kw)
-        ref = march_adjoint_reference(pos0, torch.stack(planes, dim=-1), h=static.step_size,
-                                      max_steps=static.max_steps, disk_on=static.disk_on,
-                                      cot_acc=cot_acc, cot_vel=cot_vel, **kw)
+        ckpt, rsteps = _ckpt_buffers(static, n_small, dev)
+        fwd_ck = b1.march_cuda(pos0, planes, params, static, kw["safe"], ray_steps=rsteps,
+                               checkpoints=ckpt)
+        plain = geodesic.march_checkpointed(pos0, stacked, params, static, kw["safe"])
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(fwd_ck, fwd)):
+            raise AssertionError(f"{dtype}: B1's checkpointing variant changed its outputs")
+        _check_checkpoints(ckpt, rsteps, plain, dtype)
+        cot_acc, cot_vel = (torch.from_numpy(c).to(dev, dt) for c in cot_np)
+        adj = dict(h=static.step_size, max_steps=static.max_steps, disk_on=static.disk_on,
+                   cot_acc=cot_acc, cot_vel=cot_vel, **kw)
+        ker = b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static,
+                                    checkpoints=ckpt, ray_steps=rsteps, **kw)
+        ref = march_adjoint_reference(pos0, stacked, **adj)
+        ref_ck = march_adjoint_from_checkpoints(pos0, stacked, ckpt, rsteps, **adj)
+        torch.cuda.synchronize()
+        print("  B2 vs the plain adjoint from nothing:")
         _check_adjoint(ker, ref, fwd.status, dtype)
-        del ker, ref, fwd
+        print("  B2 vs the plain adjoint from B1's checkpoints:")
+        _check_adjoint(ker, ref_ck, fwd.status, dtype)
+        del ker, ref, ref_ck, fwd, fwd_ck, plain, ckpt
 
     # ---- 8. B4 against the plain star VJP, full grid, 1080p escapes ----
     _banner("8. B4 star VJP kernel vs plain star VJP, 470k-star grid, 1920x1080 escaped rays")
@@ -619,6 +689,7 @@ def main():
         b1.march_cuda.launches = b2.march_adjoint_cuda.launches = 0
         b3.star_lookup_cuda.launches = b3.star_lookup_vjp_cuda.launches = 0
         geodesic.march.calls = march_adjoint_reference.calls = 0
+        march_adjoint_from_checkpoints.calls = 0
         StarGrid.lookup.calls = StarGrid.lookup_vjp.calls = 0
         log = io.StringIO()
         t0 = time.perf_counter()
@@ -631,6 +702,7 @@ def main():
                         "b3": b3.star_lookup_cuda.launches,
                         "b4": b3.star_lookup_vjp_cuda.launches}
         fit_plain = {"march": geodesic.march.calls, "adjoint": march_adjoint_reference.calls,
+                     "adjoint from checkpoints": march_adjoint_from_checkpoints.calls,
                      "lookup": StarGrid.lookup.calls, "star_vjp": StarGrid.lookup_vjp.calls}
         text = log.getvalue()
         print("  | " + text.strip().replace("\n", "\n  | "))
@@ -673,53 +745,81 @@ def main():
     torch.cuda.synchronize()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            step_fn(state, target_img)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 2e3
-    busy_ms = sum(by_kernel.values())
+    prof = step_profile.profile_steps(lambda: step_fn(state, target_img), 2)
+    busy_ms, prof_wall_ms = prof["busy_ms"], prof["wall_ms"]
     print(f"  training step (all 12 leaves trainable): forward {fwd_ms:.3f} ms, forward + "
           f"backward {fwd_bwd_ms:.3f} ms, whole step {step_ms:.3f} ms; peak allocated "
           f"{peak_mib:.0f} MiB  [{card}]")
     print(f"  profile of a step: device busy {busy_ms:.3f} ms, wall {prof_wall_ms:.3f} ms "
           f"under the profiler (idle share {1 - busy_ms / prof_wall_ms:.3f}); by kernel:")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
+    for name, (ms, _n) in sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:14]:
         print(f"    {ms:9.3f} ms  {name[:100]}")
 
     pos0, planes = generate_ray_components(params.camera, 1920, 1080, dtype=dt)
+    stacked = torch.stack(planes, dim=-1)
     kw = _adjoint_args(params, static)
     fwd = b1.march_cuda(pos0, planes, params, static, kw["safe"])
+    ckpt, rsteps = _ckpt_buffers(static, n_rays, dev)
+    fwd_ck = b1.march_cuda(pos0, planes, params, static, kw["safe"], ray_steps=rsteps,
+                           checkpoints=ckpt)
+    plain = geodesic.march_checkpointed(pos0, stacked, params, static, kw["safe"])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(fwd_ck, fwd)):
+        raise AssertionError("B1's checkpointing variant changed its outputs at 1080p")
+    print("  B1's checkpointing variant at the training shape:")
+    _check_checkpoints(ckpt, rsteps, plain, "float32")
+    del plain, fwd_ck
+
+    def b1_frame():
+        return b1.march_cuda(pos0, planes, params, static, kw["safe"])
+
+    def b1_ckpt():
+        return b1.march_cuda(pos0, planes, params, static, kw["safe"], ray_steps=rsteps,
+                             checkpoints=ckpt)
+
+    b1_times = {"frame": [], "checkpointing": []}
+    for _ in range(2):  # in turns
+        for name, fn in (("frame", b1_frame), ("checkpointing", b1_ckpt)):
+            b1_times[name].append(_kernel_ms(fn, "march_kernel", 10))
+    b1_ckpt_ms = _cuda_ms(b1_ckpt, 10)
+    b1_ckpt_kernel_ms = sum(b1_times["checkpointing"]) / 2
+    print("  B1 kernel, frame variant " + " / ".join(f"{t:.3f}" for t in b1_times["frame"])
+          + " ms, checkpointing variant " + " / ".join(f"{t:.3f}" for t in b1_times["checkpointing"])
+          + f" ms (in turns; wrapper {b1_ckpt_ms:.3f} ms)  [{card}]")
+    for name, line in ptxas[b1].items():
+        print(f"    ptxas -v, {name}: {line}")
+
     rng = np.random.default_rng(10)
     cot_acc = torch.from_numpy(rng.normal(size=(n_rays, 4))).to(dev, dt)
     cot_vel = torch.from_numpy(rng.normal(size=(n_rays, 3))).to(dev, dt)
 
     def b2_call():
-        return b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static, **kw)
+        return b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static,
+                                     checkpoints=ckpt, ray_steps=rsteps, **kw)
 
     ker = b2_call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = march_adjoint_reference(pos0, torch.stack(planes, dim=-1), h=static.step_size,
+    ref = march_adjoint_reference(pos0, stacked, h=static.step_size,
                                   max_steps=static.max_steps, disk_on=static.disk_on,
                                   cot_acc=cot_acc, cot_vel=cot_vel, **kw)
     torch.cuda.synchronize()
     adjoint_ms = (time.perf_counter() - t0) * 1e3
-    print("  B2 at the training shape (seeded random cotangents):")
+    print("  B2 at the training shape (seeded random cotangents, B1's checkpoints):")
     b2_err = _check_adjoint(ker, ref, fwd.status, "float32")
-    del ker, ref
+    del ker
     b2_ms = _cuda_ms(b2_call, 5)
     b2_kernel_ms = _kernel_ms(b2_call, "march_adjoint_kernel", 5)
     # 3 direction and 7 cotangent planes in; 3 gradient planes and status out.
     b2_bound = _bound(n_rays * (13 * 4 + 4), frame_steps * ADJOINT_OPS_PER_STEP)
+    del ref
+    smem = geodesic.SEG_LEN * geodesic.CKPT_VALUES * b2.THREADS  # elements a block
+    print(f"  B2: {b2.THREADS} threads a block; its replay array takes {smem * 4} B (f32) and "
+          f"{smem * 8} B (f64) of shared memory a block, which leave room for "
+          f"{233472 // (smem * 4 + 1024)} and {233472 // (smem * 8 + 1024)} blocks an SM "
+          "(228 KB, 1 KB reserved a block)")
+    for name, line in ptxas[b2].items():
+        print(f"    ptxas -v, {name}: {line}")
 
     escaped = fwd.status == ESCAPED
     inten, sat = params.stars.intensity, params.stars.saturation
@@ -848,21 +948,12 @@ def main():
     k2_plain_ms = _host_ms(lambda: window.k2_reference(*k2_args), 2)
     stage_ms = _cuda_ms(lambda: window.window_stage(fv, fesc, grid32, *fshade), 10)
     frame_b3_ms = _cuda_ms(lambda: b3.star_lookup_cuda(grid32, fv, inten, sat, fesc), 10)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            window.window_stage(fv, fesc, grid32, *fshade)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    by_kernel, n_launch = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 3e3
-            n_launch += 1
-    print(f"  profile of the stage: device busy {sum(by_kernel.values()):.3f} ms in "
-          f"{n_launch / 3:.0f} device operations, wall {prof_wall_ms:.3f} ms under the "
+    prof = step_profile.profile_steps(lambda: window.window_stage(fv, fesc, grid32, *fshade), 3)
+    n_launch = sum(n for _, n in prof["by_kernel"].values())
+    print(f"  profile of the stage: device busy {prof['busy_ms']:.3f} ms in "
+          f"{n_launch / 3:.0f} device operations, wall {prof['wall_ms']:.3f} ms under the "
           f"profiler; largest:")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+    for name, (ms, _n) in sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"    {ms:9.4f} ms  {name[:100]}")
     dec = torch.rad2deg(torch.asin(inp.rz[fesc].double()))
     print(f"  escaped rays' declination: median {dec.median().item():.1f} deg, share above "
@@ -942,6 +1033,7 @@ def main():
          "replaces": "blackstar_tpu/ops/march_pallas.py:104",
          "launches": fit_launches["b1"], "launches_render": launches["b1"],
          "max_abs_err": b1_err, "ms": b1_ms, "kernel_ms": b1_kernel_ms, "plain_ms": march_ms,
+         "ckpt_ms": b1_ckpt_ms, "ckpt_kernel_ms": b1_ckpt_kernel_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None},
         {"name": "march adjoint (B2)", "route": "cuda",
          "source": "blackstar_tpu_torch/ops/csrc/march_adjoint.cu",
