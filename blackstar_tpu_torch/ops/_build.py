@@ -3,7 +3,8 @@
 Each kernel is one ``.cu`` file with a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/`` at
 the repository root, at first use, and loaded with ``ctypes``. The library's
-file name carries a hash of the source and the flags, so an edited kernel
+file name carries a hash of the source, of the local headers it includes
+(``#include "..."``) and of the flags, so an edited kernel or header
 rebuilds and an unchanged one is reused. Nothing here runs at import time.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,10 +43,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list:
+    """``source`` and the local headers it includes, directly or through
+    another local header (each once, in the order first included)."""
+    seen, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for name in _LOCAL_INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path), name.decode()))
+    return seen
+
+
 def library_path(source: str, extra_flags=()) -> str:
     """Where the library built from ``source`` with ``extra_flags`` lives."""
-    with open(source, "rb") as f:
-        key = hashlib.sha256(f.read() + repr(NVCC_FLAGS + tuple(extra_flags)).encode())
+    key = hashlib.sha256()
+    for path in _sources(source):
+        with open(path, "rb") as f:
+            key.update(f.read())
+    key.update(repr(NVCC_FLAGS + tuple(extra_flags)).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{key.hexdigest()[:16]}.so")
 

@@ -16,37 +16,40 @@
 //     keeps status ACTIVE (truncated).
 //
 // What bounds it on an H100: each ray reads 12 bytes (its direction) and
-// writes 32 (velocity, RGBA, status) in float32, but does ~100 flops per
-// RK4 step (four accelerations, each a square root and a divide) over ~230
-// steps on the default scene. So it is compute- and divergence-bound, not
-// memory-bound. The design keeps the whole ray state in registers, walks
+// writes 32 (velocity, RGBA, status) in float32, but runs ~220 RK4 steps on
+// the default scene, each four accelerations and the stage and final
+// combinations: ~128 operations. So it is bound by FP32 instruction issue,
+// not by memory. The design keeps the whole ray state in registers, walks
 // the pixels in row-major order so the 32 rays of a warp are neighbours with
 // similar step counts (less divergence), and lets each thread stop at its
 // own ray's termination. The disk shading (a divide, a square root, a sine)
-// runs inline, only behind the cheap candidate test: the step is active, y
-// changed sign, the opacity is non-zero, and the step's end points are not
-// both outside or both inside the annulus (the crossing radius^2 is a convex
-// combination of r^2 and r'^2, so such a step can never hit).
+// runs inline, only behind the cheap candidate test (march_step.cuh).
 //
-// 1/r^5 is taken as a divide, coef / (r^2 r^2 sqrt(r^2)), exactly as the
-// plain march writes it; the TPU kernel took rsqrt powers instead. The file
-// builds without --use_fast_math (sqrt and the divide are IEEE-rounded) and
-// with -fmad=false: every operation is written in the plain march's order and
-// rounds on its own, as the plain march's one-operation-per-step PyTorch
-// kernels do. With nvcc's default contraction a first build agreed with the
-// plain march to 6e-12 in float64 but lost the float32 gate: near the photon
-// ring the contracted and uncontracted float32 orbits part, and a few rays
-// of the 480x270 frame crossed the disk at other radii (RGBA off by 3e-2).
+// The step itself (acceleration, RK4, classification, disk candidate and
+// crossing) comes from march_step.cuh, which the adjoint kernel B2 shares,
+// so that B2's replay passes through this kernel's states bit for bit. Its
+// arithmetic is the TPU kernel's: r^-5 by rsqrt powers (one MUFU instruction
+// in float) and explicit fused multiply-adds; the file builds with
+// -fmad=false so that nothing else is fused. It rounds otherwise than the
+// plain march (a divide for r^-5, no fusion), so in float32 it follows its
+// own orbit near the photon ring: chip_smoke.py holds it to the float64
+// plain march no worse than the float32 plain march is
+// (scripts/march_accuracy.py), and in float64 within 1e-7 of the plain march.
 // The step's half and sixth come in from the caller, rounded as the plain
-// march rounds them (true division on the host).
+// march rounds them (true division on the host). On the card (`nvcc
+// -Xptxas -v`, float): 40 registers, no stack frame; the step loop spans 230
+// SASS instructions with 5 RSQ (four accelerations and the disk's square
+// root), and its only divides and their slow paths are the disk branch's.
+// Measured at 1920x1080 float32: 2.15 ms against a 0.88 ms bound (NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md section 6 has the history).
 //
 // The executed step count is the maximum over rays of the loop iterations
 // each ray ran (the iteration that classifies a ray counts; a truncated ray
 // counts max_steps), reduced per block and combined with one atomicMax. It
-// equals the plain march's `steps`. When the caller passes a ray_steps
-// array, each ray also writes its count of advancing RK4 steps there (the
-// classifying iteration does no RK4 step): the work the frame needed, for
-// its operation count.
+// equals the plain march's `steps` when the two take the same orbits. When
+// the caller passes a ray_steps array, each ray also writes its count of
+// advancing RK4 steps there (the classifying iteration does no RK4 step):
+// the work the frame needed, for its operation count.
 //
 // Checkpointing variant (kCkpt, launched when the caller passes a checkpoint
 // array; the training forward): what the adjoint kernel B2
@@ -54,13 +57,11 @@
 // k % 16 == 0 (after both classification tests passed, before the RK4 step)
 // the thread writes its state (px py pz vx vy vz alpha) into an
 // (n_seg, 7, n) array laid out [segment][value][ray], so a warp's stores
-// coalesce; with ray_steps (B2's nc) that is all B2 needs, and B2 replays a
-// segment with this file's arithmetic, so its states equal these bit for
-// bit. Entries past a ray's end are not written. The frame path launches
-// kCkpt = false, whose code is the kernel without the variant. The stores
-// cost 28 bytes per ray per 16 steps (2.2 GB at 1080p, float32), mostly
-// hidden under the arithmetic: 3.50 against 3.41 ms for the frame variant
-// at 1920x1080 float32 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// coalesce; with ray_steps (B2's nc) that is all B2 needs. Entries past a
+// ray's end are not written. The frame path launches kCkpt = false, whose
+// code is the kernel without the variant. The stores cost 28 bytes per ray
+// per 16 steps (2.2 GB at 1080p, float32), mostly hidden under the
+// arithmetic (times in PERF.md).
 //
 // Templated on float (the render path) and double (the on-card gate that
 // separates semantics from rounding).
@@ -68,15 +69,12 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "march_step.cuh"
+
 namespace {
 
-constexpr int kActive = 0;
-constexpr int kEscaped = 1;
-constexpr int kHorizon = 2;
 constexpr int kThreads = 128;
-constexpr int kSeg = 16;       // steps per checkpoint segment (B2's kSeg)
 constexpr int kCkptVals = 7;   // px py pz vx vy vz alpha
-constexpr double kPi = 3.14159265358979323846;
 
 template <typename T>
 struct MarchParams {
@@ -94,21 +92,6 @@ struct MarchParams {
   int disk_on;  // diskOpacity != 0 at config time
 };
 
-// coef / |q|^5 * q, from a precomputed r^2 = |q|^2.
-template <typename T>
-__device__ __forceinline__ void accel(T coef, T qx, T qy, T qz, T r2,
-                                      T& ax, T& ay, T& az) {
-  const T s = coef / (r2 * r2 * sqrt(r2));
-  ax = s * qx;
-  ay = s * qy;
-  az = s * qz;
-}
-
-template <typename T>
-__device__ __forceinline__ int sign_of(T x) {
-  return (x > T(0)) - (x < T(0));
-}
-
 template <typename T, bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
 march_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
@@ -121,87 +104,52 @@ march_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int executed = 0;
   if (i < n) {
-    T px = P.p0x, py = P.p0y, pz = P.p0z;
-    T vx = vx0[i], vy = vy0[i], vz = vz0[i];
-
-    // Conserved angular momentum h^2 = |pos x vel|^2 (Raytracer.hs:73).
-    const T cx = py * vz - pz * vy;
-    const T cy = pz * vx - px * vz;
-    const T cz = px * vy - py * vx;
-    const T h2 = cx * cx + cy * cy + cz * cz;
-    const T coef = T(-1.5) * P.mass * h2;
-
-    const T h = P.h, hh = P.hh, h6 = P.h6;
+    V3<T> p = {P.p0x, P.p0y, P.p0z};
+    V3<T> v = {vx0[i], vy0[i], vz0[i]};
+    V3<T> cross;
+    T h2;
+    const T coef = ray_coef(p, v, P.mass, cross, h2);
     const T rs2 = P.mass * P.mass;
     const T inner2 = P.inner * P.inner;
     const T outer2 = P.outer * P.outer;
 
     T ar = T(0), ag = T(0), ab = T(0), aa = T(0);
     int status = kActive;
-    T r2 = px * px + py * py + pz * pz;  // pre-step r^2, carried step to step
+    T r2 = r2_of(p);  // pre-step r^2, carried step to step
     int k = 0;
     for (; k < P.max_steps; ++k) {
-      if (r2 < rs2) { status = kHorizon; break; }
-      if (r2 > P.safe) { status = kEscaped; break; }
+      status = classify(r2, rs2, P.safe);
+      if (status != kActive) break;
       if constexpr (kCkpt) {
         if (k % kSeg == 0) {
           T* ck = ckpt + (int64_t)(k / kSeg) * kCkptVals * n + i;
-          ck[0] = px; ck[n] = py; ck[2 * n] = pz;
-          ck[3 * n] = vx; ck[4 * n] = vy; ck[5 * n] = vz;
+          ck[0] = p.x; ck[n] = p.y; ck[2 * n] = p.z;
+          ck[3 * n] = v.x; ck[4 * n] = v.y; ck[5 * n] = v.z;
           ck[6 * n] = aa;
         }
       }
-
-      // Classic RK4 tableau, in the plain march's operation order.
-      T a1x, a1y, a1z;
-      accel(coef, px, py, pz, r2, a1x, a1y, a1z);
-      const T q2x = px + hh * vx, q2y = py + hh * vy, q2z = pz + hh * vz;
-      const T u2x = vx + hh * a1x, u2y = vy + hh * a1y, u2z = vz + hh * a1z;
-      T a2x, a2y, a2z;
-      accel(coef, q2x, q2y, q2z, q2x * q2x + q2y * q2y + q2z * q2z, a2x, a2y, a2z);
-      const T q3x = px + hh * u2x, q3y = py + hh * u2y, q3z = pz + hh * u2z;
-      const T u3x = vx + hh * a2x, u3y = vy + hh * a2y, u3z = vz + hh * a2z;
-      T a3x, a3y, a3z;
-      accel(coef, q3x, q3y, q3z, q3x * q3x + q3y * q3y + q3z * q3z, a3x, a3y, a3z);
-      const T q4x = px + h * u3x, q4y = py + h * u3y, q4z = pz + h * u3z;
-      const T u4x = vx + h * a3x, u4y = vy + h * a3y, u4z = vz + h * a3z;
-      T a4x, a4y, a4z;
-      accel(coef, q4x, q4y, q4z, q4x * q4x + q4y * q4y + q4z * q4z, a4x, a4y, a4z);
-      const T npx = px + h6 * (((vx + T(2) * u2x) + T(2) * u3x) + u4x);
-      const T npy = py + h6 * (((vy + T(2) * u2y) + T(2) * u3y) + u4y);
-      const T npz = pz + h6 * (((vz + T(2) * u2z) + T(2) * u3z) + u4z);
-      const T nvx = vx + h6 * (((a1x + T(2) * a2x) + T(2) * a3x) + a4x);
-      const T nvy = vy + h6 * (((a1y + T(2) * a2y) + T(2) * a3y) + a4y);
-      const T nvz = vz + h6 * (((a1z + T(2) * a2z) + T(2) * a3z) + a4z);
-      const T r2n = npx * npx + npy * npy + npz * npz;
-
-      if (P.disk_on) {
-        const bool candidate =
-            P.opacity != T(0) && sign_of(py) != sign_of(npy) &&
-            !((r2 > outer2 && r2n > outer2) || (r2 < inner2 && r2n < inner2));
-        if (candidate) {
-          const T r2ave = (npy * r2 - py * r2n) / (npy - py);
-          if (r2ave > inner2 && r2ave < outer2) {
-            const T r = sqrt(r2ave);
-            const T frac = (P.outer - r) / (P.outer - P.inner);
-            const T intensity = sin(T(kPi) * frac * frac);
-            const T one_m = T(1) - aa;
-            ar = ar + (P.disk_r * intensity) * one_m;
-            ag = ag + (P.disk_g * intensity) * one_m;
-            ab = ab + (P.disk_b * intensity) * one_m;
-            aa = aa + (intensity * P.opacity) * one_m;
-          }
+      V3<T> np, nv;
+      rk4_step(coef, P.h, P.hh, P.h6, p, v, r2, np, nv);
+      const T r2n = r2_of(np);
+      if (P.disk_on && disk_candidate(P.opacity, p.y, np.y, r2, r2n, inner2, outer2)) {
+        const Crossing<T> c =
+            disk_crossing(p.y, np.y, r2, r2n, P.inner, P.outer, inner2, outer2);
+        if (c.hit) {
+          ar = blend_over(ar, P.disk_r * c.intensity, aa);
+          ag = blend_over(ag, P.disk_g * c.intensity, aa);
+          ab = blend_over(ab, P.disk_b * c.intensity, aa);
+          aa = blend_over(aa, c.intensity * P.opacity, aa);
         }
       }
-      px = npx; py = npy; pz = npz;
-      vx = nvx; vy = nvy; vz = nvz;
+      p = np;
+      v = nv;
       r2 = r2n;
     }
     executed = status == kActive ? P.max_steps : k + 1;
 
-    out[i] = vx;
-    out[n + i] = vy;
-    out[2 * n + i] = vz;
+    out[i] = v.x;
+    out[n + i] = v.y;
+    out[2 * n + i] = v.z;
     out[3 * n + i] = ar;
     out[4 * n + i] = ag;
     out[5 * n + i] = ab;
@@ -213,13 +161,13 @@ march_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
   // Block maximum of the executed counts, then one atomic per block. Every
   // thread of the block reaches this point (no early return above).
   __shared__ int warp_max[kThreads / 32];
-  const int v = __reduce_max_sync(0xffffffffu, executed);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = v;
+  const int m = __reduce_max_sync(0xffffffffu, executed);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
-    int m = warp_max[0];
-    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
-    if (m > 0) atomicMax(steps_out, m);
+    int b = warp_max[0];
+    for (int w = 1; w < kThreads / 32; ++w) b = max(b, warp_max[w]);
+    if (b > 0) atomicMax(steps_out, b);
   }
 }
 

@@ -16,8 +16,9 @@
 // forward): ray_steps, each ray's count nc of advancing steps, and an
 // (n_seg, 7, n) tensor laid out [segment][value][ray] holding (px py pz vx vy
 // vz alpha) before every advancing step k with k % 16 == 0. B1 and this
-// kernel take the same arithmetic, so those are the states this kernel's
-// replay passes through, bit for bit. So there is no forward replay here.
+// kernel take their step from one source (march_step.cuh), so those are the
+// states this kernel's replay passes through, bit for bit. So there is no
+// forward replay here.
 //
 // Design.
 //   * Segments newest first. A thread replays its segment from the
@@ -27,16 +28,13 @@
 //     post-position is the next step's pre-position, and the last one's is
 //     still in registers after the replay, so 16 slots suffice. A warp's 32
 //     accesses to one (slot, value) fall on 32 consecutive words: no bank
-//     conflicts, and nothing goes to local memory (the replay buffer of the
-//     earlier design, indexed dynamically, lived there: a 504-byte stack
-//     frame per thread, 387 KB per SM at its occupancy, spilling to L2).
+//     conflicts, and nothing goes to local memory.
 //   * Stages: the VJP needs the RK4 stage positions q2, q3, q4, and
 //     recomputes them from the pre-state (two accelerations per step).
 //     Keeping them in the replay array instead (16 values a slot, the JAX
 //     package's store_stages) gave the same bits and ~100 fewer SASS
 //     instructions per step, but 1 KB of shared memory per thread leaves 7
-//     warps per SM: it ran 13.3 ms against 9.6 ms (PERF.md), so it was
-//     dropped.
+//     warps per SM, and it ran slower (PERF.md).
 //   * Only the steps that advanced the ray are reversed; the terminating step
 //     and every step after it are the identity for the adjoint (no cotangent
 //     flows through a frozen state). The disk-blend VJP runs only on a step
@@ -49,37 +47,38 @@
 //     shared array in a fixed order, and writes one row of a (blocks, 10)
 //     buffer: no float atomics, so a run repeats bit for bit.
 //
-// Arithmetic. The replay uses B1's arithmetic and order: r^-5 as
-// coef / (r^2 r^2 sqrt(r^2)), the same RK4 tableau order, the step's half and
-// sixth rounded on the host. The VJP formulas follow march_vjp.rk4_vjp /
-// step_vjp as written, in the plain version's operation order. The file
-// builds with -fmad=false and without fast math, as B1 does, so each
-// operation rounds as the plain PyTorch version's one-operation kernels
-// round, and the per-ray gradients equal the plain adjoint's bit for bit.
+// Arithmetic. The replay and the stage recomputation are march_step.cuh's
+// (r^-5 by rsqrt powers, explicit fused multiply-adds, the step's half and
+// sixth rounded on the host), so they equal B1's. The VJP formulas follow
+// march_vjp.rk4_vjp / step_vjp as written; the disk-blend VJP takes the
+// crossing and its hit test from march_step.cuh, as the forward decided
+// them. The file builds with -fmad=false and without fast math, as B1 does.
+// The plain adjoint replays with the plain march's arithmetic (a divide for
+// r^-5), so in float32 its orbits part from this kernel's near the photon
+// ring, and chip_smoke.py holds the float32 gradients to the float64 plain
+// adjoint no worse than the float32 plain adjoint is.
 //
 // What bounds it on an H100: per ray it reads 10 planes (directions,
 // cotangents), the step count and its checkpoints, and writes 4 (gradients,
 // status): ~56 bytes plus 28 bytes per 16 steps in float32. Every advancing
 // step costs a replayed RK4 step and the VJP (two recomputed stage
-// accelerations, four symmetric-Jacobian applications); without fast math
-// each divide and square root is an IEEE sequence, ~425 FP32 instructions
-// per ray-step in all, so it is bound by FP32 issue, not by memory. Each
-// ray is a scalar ODE: there is no matrix product for the tensor cores
-// (wgmma) and no tile of bytes worth a TMA stream. What the card offers this
-// kernel is its registers, up to 227 KB of shared memory per block for the
-// replay, and its FP32 issue rate.
+// accelerations, four symmetric-Jacobian applications), several hundred
+// FP32 instructions per ray-step, so it is bound by FP32 issue, not by
+// memory. Each ray is a scalar ODE: there is no matrix product for the
+// tensor cores (wgmma) and no tile of bytes worth a TMA stream. What the
+// card offers this kernel is its registers, up to 227 KB of shared memory
+// per block for the replay, and its FP32 issue rate.
 //
 // Occupancy is set by the replay array: 233,472 bytes of shared memory per
 // SM, less 1 KB the runtime takes per block, so about 512 bytes per thread
 // buy 16 warps whatever the block size; the block size only has to divide
 // the SM's share evenly. Float: 16 x 7 x 4 B x 128 threads = 57,344 B, 4
 // blocks (16 warps) per SM, so __launch_bounds__ lets registers go up to
-// 128; `nvcc -Xptxas -v` on the card: 81 registers, a 32-byte stack frame
-// (the slow path of sin's argument reduction, as in B1), no spills. Double
-// (the gate): 114,688 B, 2 blocks (8 warps), 154 registers. Measured at
-// 1920x1080 float32 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md):
-// 9.6 ms, against 12.9 ms for the earlier design and an operation bound of
-// 2.1 ms.
+// 128; `nvcc -Xptxas -v` on the card: 79 registers, a 32-byte stack frame
+// (the slow path of the disk-blend VJP's cos), no spills. Double (the gate):
+// 114,688 B, 2 blocks (8 warps), 146 registers. Measured at 1920x1080
+// float32: 7.5 ms a training step against an operation bound of 2.1 ms
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6 has the history).
 //
 // Templated on float (the training path) and double (the on-card gate that
 // separates semantics from rounding).
@@ -87,12 +86,10 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "march_step.cuh"
+
 namespace {
 
-constexpr int kActive = 0;
-constexpr int kEscaped = 1;
-constexpr int kHorizon = 2;
-constexpr int kSeg = 16;        // steps per checkpoint segment (B1's kSeg)
 constexpr int kVals = 7;        // px py pz vx vy vz alpha: a checkpoint, a replay slot
 constexpr int kPartials = 10;
 constexpr int kThreads = 128;  // THREADS in march_adjoint_cuda.py
@@ -121,17 +118,6 @@ struct AdjParams {
 };
 
 template <typename T>
-struct V3 {
-  T x, y, z;
-};
-
-// The RK4 stage positions of one step.
-template <typename T>
-struct Stages {
-  V3<T> q2, q3, q4;
-};
-
-template <typename T>
 __device__ __forceinline__ T dot3(const V3<T>& a, const V3<T>& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z;
 }
@@ -147,76 +133,31 @@ __device__ __forceinline__ V3<T> add(const V3<T>& a, const V3<T>& b) {
   return {a.x + b.x, a.y + b.y, a.z + b.z};
 }
 
-template <typename T>
-__device__ __forceinline__ int sign_of(T x) {
-  return (x > T(0)) - (x < T(0));
-}
-
-__device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_of(double x) { return rsqrt(x); }
-
-// coef / |q|^5 * q, as B1 takes it.
-template <typename T>
-__device__ __forceinline__ V3<T> accel(T coef, const V3<T>& q) {
-  const T r2 = dot3(q, q);
-  const T s = coef / (r2 * r2 * sqrt(r2));
-  return {s * q.x, s * q.y, s * q.z};
-}
-
-// One advancing march step on (p, v, alpha): RK4 in B1's order, then the disk
-// crossing (B1's candidate filter and blend, alpha only).
+// One advancing march step on (p, v, alpha), as B1 takes it: RK4, then the
+// disk crossing (alpha only).
 template <typename T>
 __device__ __forceinline__ void step_fwd(const AdjParams<T>& P, T coef, T in2, T out2,
                                          V3<T>& p, V3<T>& v, T& aa) {
-  const T r2 = dot3(p, p);
-  const V3<T> k1 = accel(coef, p);
-  const V3<T> q2 = axpy(p, P.hh, v);
-  const V3<T> u2 = axpy(v, P.hh, k1);
-  const V3<T> k2 = accel(coef, q2);
-  const V3<T> q3 = axpy(p, P.hh, u2);
-  const V3<T> u3 = axpy(v, P.hh, k2);
-  const V3<T> k3 = accel(coef, q3);
-  const V3<T> q4 = axpy(p, P.h, u3);
-  const V3<T> u4 = axpy(v, P.h, k3);
-  const V3<T> k4 = accel(coef, q4);
-  const V3<T> np = {p.x + P.h6 * (((v.x + T(2) * u2.x) + T(2) * u3.x) + u4.x),
-                    p.y + P.h6 * (((v.y + T(2) * u2.y) + T(2) * u3.y) + u4.y),
-                    p.z + P.h6 * (((v.z + T(2) * u2.z) + T(2) * u3.z) + u4.z)};
-  const V3<T> nv = {v.x + P.h6 * (((k1.x + T(2) * k2.x) + T(2) * k3.x) + k4.x),
-                    v.y + P.h6 * (((k1.y + T(2) * k2.y) + T(2) * k3.y) + k4.y),
-                    v.z + P.h6 * (((k1.z + T(2) * k2.z) + T(2) * k3.z) + k4.z)};
+  const T r2 = r2_of(p);
+  V3<T> np, nv;
+  rk4_step(coef, P.h, P.hh, P.h6, p, v, r2, np, nv);
   if (P.disk_on) {
-    const T r2n = dot3(np, np);
-    const bool candidate = P.opacity != T(0) && sign_of(p.y) != sign_of(np.y) &&
-                           !((r2 > out2 && r2n > out2) || (r2 < in2 && r2n < in2));
-    if (candidate) {
-      const T r2ave = (np.y * r2 - p.y * r2n) / (np.y - p.y);
-      if (r2ave > in2 && r2ave < out2) {
-        const T r = sqrt(r2ave);
-        const T frac = (P.outer - r) / (P.outer - P.inner);
-        const T intensity = sin(T(kPi) * frac * frac);
-        aa = aa + intensity * P.opacity * (T(1) - aa);
-      }
+    const T r2n = r2_of(np);
+    if (disk_candidate(P.opacity, p.y, np.y, r2, r2n, in2, out2)) {
+      const Crossing<T> c = disk_crossing(p.y, np.y, r2, r2n, P.inner, P.outer, in2, out2);
+      if (c.hit) aa = blend_over(aa, c.intensity * P.opacity, aa);
     }
   }
   p = np;
   v = nv;
 }
 
-// The stage positions of the step from (p, v), recomputed with step_fwd's
-// arithmetic (so equal to the replay's).
+// The stage positions of the step from (p, v), as the replay computed them.
 template <typename T>
-__device__ __forceinline__ Stages<T> rk4_stages(const AdjParams<T>& P, T coef, const V3<T>& p,
-                                                const V3<T>& v) {
-  Stages<T> st;
-  const V3<T> k1 = accel(coef, p);
-  st.q2 = axpy(p, P.hh, v);
-  const V3<T> u2 = axpy(v, P.hh, k1);
-  const V3<T> k2 = accel(coef, st.q2);
-  st.q3 = axpy(p, P.hh, u2);
-  const V3<T> u3 = axpy(v, P.hh, k2);
-  st.q4 = axpy(p, P.h, u3);
-  return st;
+__device__ __forceinline__ Stages<T> stages_of(const AdjParams<T>& P, T coef, const V3<T>& p,
+                                               const V3<T>& v) {
+  V3<T> a1, a2, u2, u3;
+  return rk4_stages(coef, P.h, P.hh, p, v, r2_of(p), a1, a2, u2, u3);
 }
 
 // q_bar = J(q)^T k_bar for J = a'(q) (symmetric); adds the stage's coef_bar.
@@ -276,15 +217,17 @@ __device__ __forceinline__ void step_vjp(const AdjParams<T>& P, T coef, T in2, T
   V3<T> np_bar = c.pbar;
   V3<T> pbar = {T(0), T(0), T(0)};
   const V3<T> nv_bar = c.vbar;
-  if (P.disk_on && P.opacity != T(0) && sign_of(p.y) != sign_of(np.y)) {
-    const T r2 = dot3(p, p);
-    const T r2n = dot3(np, np);
-    const T ds = np.y - p.y;
-    const T r2ave = (np.y * r2 - p.y * r2n) / ds;
-    if (r2ave > in2 && r2ave < out2) {
-      const T r = sqrt(r2ave);
-      const T frac = (P.outer - r) / (P.outer - P.inner);
-      const T intensity = sin(T(kPi) * frac * frac);
+  if (P.disk_on) {
+    // The crossing and its hit test as the forward decided them.
+    const T r2 = r2_of(p);
+    const T r2n = r2_of(np);
+    const Crossing<T> cr =
+        disk_candidate(P.opacity, p.y, np.y, r2, r2n, in2, out2)
+            ? disk_crossing(p.y, np.y, r2, r2n, P.inner, P.outer, in2, out2)
+            : Crossing<T>{};
+    if (cr.hit) {
+      const T ds = np.y - p.y;
+      const T r2ave = cr.r2ave, r = cr.r, frac = cr.frac, intensity = cr.intensity;
       const T one_m = T(1) - aa;
       const T rgb_dot = c.arbar * P.disk_r + c.agbar * P.disk_g + c.abbar * P.disk_b;
       const T ibar = one_m * (rgb_dot + c.aabar * P.opacity);
@@ -342,12 +285,10 @@ march_adjoint_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
   if (i < n) {
     const V3<T> p0 = {P.p0x, P.p0y, P.p0z};
     const V3<T> v0 = {vx0[i], vy0[i], vz0[i]};
-    // Conserved angular momentum h^2 = |pos x vel|^2 (Raytracer.hs:73).
-    const T cx = p0.y * v0.z - p0.z * v0.y;
-    const T cy = p0.z * v0.x - p0.x * v0.z;
-    const T cz = p0.x * v0.y - p0.y * v0.x;
-    const T h2 = cx * cx + cy * cy + cz * cz;
-    const T coef = T(-1.5) * P.mass * h2;
+    V3<T> cross;
+    T h2;
+    const T coef = ray_coef(p0, v0, P.mass, cross, h2);
+    const T cx = cross.x, cy = cross.y, cz = cross.z;
     const T rs2 = P.mass * P.mass;
     const T in2 = P.inner * P.inner;
     const T out2 = P.outer * P.outer;
@@ -382,16 +323,12 @@ march_adjoint_kernel(const T* __restrict__ vx0, const T* __restrict__ vy0,
       V3<T> post = q;
       for (int j = len - 1; j >= 0; --j) {
         const V3<T> pp = {slot(j, 0), slot(j, 1), slot(j, 2)};
-        const Stages<T> st = rk4_stages(P, coef, pp, V3<T>{slot(j, 3), slot(j, 4), slot(j, 5)});
+        const Stages<T> st = stages_of(P, coef, pp, V3<T>{slot(j, 3), slot(j, 4), slot(j, 5)});
         step_vjp(P, coef, in2, out2, pp, slot(j, 6), post, st, c);
         post = pp;
       }
     }
-    const T r2f = dot3(fin, fin);
-    status_out[i] = nc == P.max_steps ? kActive
-                    : r2f < rs2       ? kHorizon
-                    : r2f > P.safe    ? kEscaped
-                                      : kActive;
+    status_out[i] = nc == P.max_steps ? kActive : classify(r2_of(fin), rs2, P.safe);
 
     // ---- Close the h^2 chain: coef = -1.5 mass h^2; h^2 = |p0 x v0|^2.
     const T h2_bar = T(-1.5) * P.mass * c.coef_bar;

@@ -30,8 +30,9 @@ from blackstar_tpu_torch.ops.march_vjp import (AdjointGrads, march_adjoint_from_
                                                march_adjoint_reference, step_scalars)
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "march_adjoint.cu")
-# No multiply-add contraction, as the forward kernel B1: the replay must
-# take the forward's path bit for bit (see the source's header).
+# No multiply-add contraction, as the forward kernel B1: the replay takes
+# the shared step (march_step.cuh) as B1 does and must pass through B1's
+# states bit for bit (see the source's header).
 FLAGS = ("-fmad=false",)
 THREADS = 128  # kThreads in the source: one block's rays, one row of partials
 N_PARTIALS = 10

@@ -25,8 +25,9 @@ from blackstar_tpu_torch.geodesic import CKPT_VALUES, MarchResult, march, n_segm
 from blackstar_tpu_torch.ops import _build
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "march.cu")
-# No multiply-add contraction: each operation rounds as the plain march's
-# (one PyTorch operation per step) does; see the source's header.
+# No multiply-add contraction: the step fuses only where march_step.cuh
+# writes a fused multiply-add, so this build and B2's round the shared step
+# alike; see the source's header.
 FLAGS = ("-fmad=false",)
 
 _P, _D = ctypes.c_void_p, ctypes.c_double

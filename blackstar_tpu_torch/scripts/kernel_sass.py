@@ -8,16 +8,21 @@ Run where the CUDA toolkit is (``nvcc``, ``cuobjdump``)::
 Per kernel instance it prints ptxas's registers, stack frame and spills
 (``-Xptxas -v``), and the loops of its SASS: a loop is a backward branch
 and the instructions from its target to it, given as (instructions,
-floating-point ALU instructions, MUFU instructions), largest first. A span
-counts code a step may skip (the rare disk hit, the slow paths of divide
-and square root), so it bounds from above what one step issues.
+floating-point ALU instructions, MUFU instructions), largest first, and
+for the largest loop its MUFU instructions by kind (``RSQ``, ``RCP``, ...),
+its ``FCHK`` (the range check of an IEEE float divide) and its calls (the
+slow paths of divide, square root and sine). A span counts code a step may
+skip (the rare disk hit, those slow paths), so it bounds from above what
+one step issues.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import re
 import subprocess
+from typing import NamedTuple
 
 from blackstar_tpu_torch.ops import _build
 
@@ -68,13 +73,21 @@ def resources(report: str) -> dict:
     return out
 
 
-def sass_loops(cubin: str) -> dict:
-    """Per kernel instance in ``cubin``: its instruction count and its loops
-    as (instructions, FP ALU instructions, MUFU instructions), largest
-    first, from ``cuobjdump -sass``."""
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True,
-                          check=True).stdout
+class Loop(NamedTuple):
+    """A SASS loop: its span in instructions, its FP ALU and MUFU
+    instructions, its MUFU instructions by kind, its FCHKs and calls."""
+
+    instructions: int
+    fp: int
+    mufu: int
+    mufu_ops: dict
+    fchk: int
+    calls: int
+
+
+def parse_sass(text: str) -> dict:
+    """Per kernel instance in ``cuobjdump -sass`` output: its instruction
+    count and its loops (:class:`Loop`), largest first."""
     result = {}
     for part in text.split("Function : ")[1:]:
         code = [(int(a, 16), ins) for a, ins in _SASS_LINE.findall(part)]
@@ -83,10 +96,39 @@ def sass_loops(cubin: str) -> dict:
             m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
             if m and int(m.group(1), 16) < addr:
                 body = [x for a, x in code if int(m.group(1), 16) <= a <= addr]
-                loops.append((len(body), sum(bool(_FP.match(x)) for x in body),
-                              sum("MUFU" in x for x in body)))
-        result[short_name(part.split()[0])] = (len(code), sorted(loops, reverse=True))
+                ops = collections.Counter(
+                    m.group(1) for m in (re.search(r"\bMUFU\.(\w+)", x) for x in body) if m)
+                loops.append(Loop(len(body), sum(bool(_FP.match(x)) for x in body),
+                                  sum(ops.values()), dict(sorted(ops.items())),
+                                  sum(bool(re.search(r"\bFCHK\b", x)) for x in body),
+                                  sum(bool(re.search(r"\bCALL\b", x)) for x in body)))
+        loops.sort(key=lambda lp: lp.instructions, reverse=True)
+        result[short_name(part.split()[0])] = (len(code), loops)
     return result
+
+
+def sass_loops(cubin: str) -> dict:
+    """:func:`parse_sass` of ``cubin``'s SASS (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return parse_sass(subprocess.run([tool, "-sass", cubin], capture_output=True, text=True,
+                                     check=True).stdout)
+
+
+def describe(cubin: str, report: str) -> list:
+    """One line per kernel instance: ptxas's resources, the instruction
+    count, the largest loops as (instructions, FP ALU, MUFU) and the
+    largest loop's MUFU kinds, FCHKs and calls."""
+    res = resources(report)
+    lines = []
+    for name, (n_ins, loops) in sass_loops(cubin).items():
+        top = loops[0] if loops else None
+        lines.append(
+            f"{name}: {res.get(name, 'no ptxas report')}; {n_ins} SASS instructions; loops "
+            f"(instructions, FP ALU, MUFU), largest first: "
+            f"{[(lp.instructions, lp.fp, lp.mufu) for lp in loops[:5]]}"
+            + (f"; largest loop: MUFU {top.mufu_ops}, FCHK {top.fchk}, calls {top.calls}"
+               if top else ""))
+    return lines
 
 
 def main() -> None:
@@ -94,10 +136,8 @@ def main() -> None:
 
     for mod in (march_cuda, march_adjoint_cuda):
         report, cubin = compile_cubin(mod.SOURCE, mod.FLAGS)
-        res = resources(report)
-        for name, (n_ins, loops) in sass_loops(cubin).items():
-            print(f"{name}: {res.get(name, 'no ptxas report')}; {n_ins} SASS instructions; "
-                  f"loops (instructions, FP ALU, MUFU), largest first: {loops[:5]}")
+        for line in describe(cubin, report):
+            print(line)
 
 
 if __name__ == "__main__":

@@ -61,3 +61,13 @@ def test_kernel_library_name_tracks_source_and_flags(tmp_path):
     assert _build.library_path(str(src), ("-fmad=false",)) != a
     src.write_text("// v2\n")
     assert _build.library_path(str(src)) != a
+    # A local header the source includes is part of the name; another is not.
+    (tmp_path / "step.cuh").write_text("// h1\n")
+    (tmp_path / "other.cuh").write_text("// o1\n")
+    src.write_text('#include <cuda_runtime.h>\n#include "step.cuh"\n// v2\n')
+    b = _build.library_path(str(src))
+    (tmp_path / "step.cuh").write_text("// h2\n")
+    c = _build.library_path(str(src))
+    assert c != b
+    (tmp_path / "other.cuh").write_text("// o2\n")
+    assert _build.library_path(str(src)) == c

@@ -54,3 +54,27 @@ def test_port_kernels_keeps_b1_apart_from_b2():
     got = step_profile.port_kernels(by_kernel)
     assert got == {"B1": {"ms": 3.5, "launches": 2}, "B2": {"ms": 9.6, "launches": 2},
                    "B3": {"ms": 0.25, "launches": 2}, "B4": {"ms": 0.3, "launches": 2}}
+
+
+_SASS = f"""
+	code for sm_90a
+		Function : {_B1_F32}
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                                 /* 0x00000a0000017a02 */
+        /*0010*/                   FFMA R2, R3, R3, R4 ;                                  /* 0x0000000303027223 */
+        /*0020*/                   MUFU.RSQ R5, R2 ;                                      /* 0x0000000200057308 */
+        /*0030*/                   FMUL R6, R5, R5 ;                                      /* 0x0000000505067220 */
+        /*0040*/                   MUFU.RCP R7, R6 ;                                      /* 0x0000000600077308 */
+        /*0050*/                   FCHK P0, R6, R7 ;                                      /* 0x0000000706007302 */
+        /*0060*/               @!P0 CALL.REL.NOINC 0x100 ;                                /* 0x0000000000008944 */
+        /*0070*/                   MUFU.RSQ R8, R6 ;                                      /* 0x0000000600087308 */
+        /*0080*/               @P1 BRA 0x10 ;                                             /* 0xffffff8000001947 */
+        /*0090*/                   EXIT ;                                                 /* 0x000000000000794d */
+"""
+
+
+def test_parse_sass_counts_a_loop_by_kind():
+    n_ins, loops = kernel_sass.parse_sass(_SASS)["march_kernel<float, true>"]
+    assert n_ins == 10
+    assert loops == [kernel_sass.Loop(instructions=8, fp=2, mufu=3,
+                                      mufu_ops={"RCP": 1, "RSQ": 2}, fchk=1, calls=1)]
