@@ -57,19 +57,21 @@ def safe_distance(params: SceneParams, dtype) -> torch.Tensor:
 
 
 def shade(res: MarchResult, params: SceneParams, star_grid, dt,
-          differentiable: bool = False) -> torch.Tensor:
+          differentiable: bool = False, width=None) -> torch.Tensor:
     """Composite the bottom layer under the accumulated disk RGBA.
 
     Bottom = celestial-sphere stars (alpha 1) for escaped rays, black for
     horizon-captured and step-cap-truncated rays (Raytracer.hs:88-95, blend
-    at :34-37)."""
+    at :34-37). ``width``, the frame's width when the rays are its pixels in
+    row-major order, is the star kernels' layout hint (no result depends
+    on it)."""
     escaped = res.status == ESCAPED
     if star_grid is not None:
         lookup = lookup_diff if differentiable else star_lookup_cuda
         star_rgb = lookup(
             star_grid, res.vel,
             params.stars.intensity.to(dt), params.stars.saturation.to(dt),
-            escaped,
+            escaped, width=width,
         )
         bottom = torch.where(escaped[:, None], star_rgb, torch.zeros((), dtype=dt, device=star_rgb.device))
     else:
@@ -97,7 +99,7 @@ def render(params: SceneParams, static: StaticConfig, star_grid=None, *,
     rw, rh = static.render_width, static.render_height
     pos0, vel0 = generate_ray_components(params.camera, rw, rh, dtype=dt)
     res = run_march(pos0, vel0, params, static, differentiable=differentiable)
-    img = shade(res, params, star_grid, dt, differentiable).reshape(rh, rw, 3)
+    img = shade(res, params, star_grid, dt, differentiable, width=rw).reshape(rh, rw, 3)
     if static.supersampling:
         img = supersample(img)
     if with_stats:

@@ -26,14 +26,15 @@ from typing import NamedTuple
 
 from blackstar_tpu_torch.ops import _build
 
-_KERNEL = re.compile(r"(march_adjoint_kernel|march_kernel)I((?:f|d|Lb[01]E)+)E")
+_KERNEL = re.compile(r"(march_adjoint_kernel|march_kernel|star_lookup_kernel|star_vjp_kernel)"
+                     r"I((?:f|d|Lb[01]E)+)E")
 _TEMPLATE_ARGS = {"f": "float", "d": "double", "Lb0E": "false", "Lb1E": "true"}
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _FP = re.compile(r"^(@!?U?P\w+\s+)?(FADD|FMUL|FFMA|FSETP|FMNMX|FSEL|DADD|DMUL|DFMA|DSETP)\b")
 
 
 def short_name(mangled: str) -> str:
-    """``march_kernel<float, true>`` for B1's or B2's mangled name."""
+    """``march_kernel<float, true>`` for B1's, B2's, B3's or B4's mangled name."""
     m = _KERNEL.search(mangled)
     if m is None:
         return mangled

@@ -155,7 +155,8 @@ def main(argv=None):
                     or max(path["k1 plain calls"], path["k2 plain calls"]) != 0):
         raise AssertionError("the stage did not go through K1 and K2 alone")
 
-    shading = torch.tensor(INTENSITY, dtype=dtype), torch.tensor(SATURATION, dtype=dtype)
+    shading = (torch.tensor(INTENSITY, dtype=dtype, device=device),
+               torch.tensor(SATURATION, dtype=dtype, device=device))
     ref = star_lookup_cuda(grid, v, *shading, esc)
     m = covered & ~missed
     err = (rgb[m] - ref[m]).abs().max().item() if bool(m.any()) else 0.0

@@ -29,25 +29,28 @@ class StarFunction(torch.autograd.Function):
     and ``active`` ride along without gradients."""
 
     @staticmethod
-    def forward(ctx, grid, vel, intensity, saturation, active):
-        ctx.grid = grid
+    def forward(ctx, grid, vel, intensity, saturation, active, width=None):
+        ctx.grid, ctx.width = grid, width
         ctx.save_for_backward(vel, intensity, saturation, active)
-        return star_lookup_cuda(grid, vel, intensity, saturation, active, clamp=False)
+        return star_lookup_cuda(grid, vel, intensity, saturation, active, clamp=False,
+                                width=width)
 
     @staticmethod
     def backward(ctx, g):
         vel, intensity, saturation, active = ctx.saved_tensors
-        gvel, g_i, g_s = star_lookup_vjp_cuda(ctx.grid, vel, intensity, saturation, active, g)
+        gvel, g_i, g_s = star_lookup_vjp_cuda(ctx.grid, vel, intensity, saturation, active, g,
+                                              width=ctx.width)
         return (None, gvel.to(vel.dtype), g_i.to(intensity.dtype), g_s.to(saturation.dtype),
-                None)
+                None, None)
 
 
 def lookup_diff(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
-                saturation: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+                saturation: torch.Tensor, active: torch.Tensor, width=None) -> torch.Tensor:
     """Clamped, escape-masked star colours (N, 3) of the ray directions
     ``vel`` (N, 3), differentiable w.r.t. ``vel``, ``intensity`` and
     ``saturation``: the same values as ``star_lookup_cuda(..., active)``,
-    with the gradients of ``jax.grad`` through the JAX package's lookup."""
+    with the gradients of ``jax.grad`` through the JAX package's lookup.
+    ``width`` is the kernels' layout hint (``star_lookup_cuda``)."""
     if active is None:
         raise ValueError("lookup_diff needs an explicit (N,) bool active mask "
                          "(torch.ones(n, dtype=torch.bool) if every ray is live)")
@@ -55,6 +58,7 @@ def lookup_diff(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
         raise ValueError("lookup_diff: the star grid's tables are catalogue data and take "
                          "no gradient; detach them (requires_grad=False)")
     dt = vel.dtype
-    unclamped = StarFunction.apply(grid, vel, intensity.to(dt), saturation.to(dt), active)
+    unclamped = StarFunction.apply(grid, vel, intensity.to(dt), saturation.to(dt), active,
+                                   width)
     out = torch.minimum(unclamped, torch.ones((), dtype=dt, device=vel.device))
     return torch.where(active[:, None], out, torch.zeros((), dtype=dt, device=vel.device))

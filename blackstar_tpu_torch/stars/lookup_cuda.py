@@ -1,5 +1,6 @@
 """Wrappers of the per-ray star lookup kernel B3 and the star VJP kernel
-B4 (both in ``csrc/star_lookup.cu``).
+B4 (both in ``csrc/star_lookup.cu``, on the row walk of
+``csrc/star_walk.cuh``).
 
 B3 computes :meth:`blackstar_tpu_torch.stars.grid.StarGrid.lookup` (its
 plain PyTorch twin) per ray on the card; it stands for the JAX package's
@@ -12,7 +13,9 @@ them.
 
 Each wrapper takes the plain path for rays on the CPU, launches its kernel
 for rays on a CUDA device, and raises for anything else. It never falls
-back from the kernel to the plain version.
+back from the kernel to the plain version, and on the card it reads no
+value back from the device: the kernels read the intensity and saturation
+there.
 """
 
 from __future__ import annotations
@@ -33,14 +36,16 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "star_
 # version's does (the PSF is sensitive to it; see the source's header).
 FLAGS = ("-fmad=false",)
 
-_P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
-_ARGTYPES = ([_P, _P, _P, _P, ctypes.c_int64, _P, _P, _P] + [_D] * 6
-             + [_I] * 6 + [_P, _P])
-_VJP_ARGTYPES = ([_P, _P, _P, _P, _P, ctypes.c_int64, _P, _P, _P] + [_D] * 6
-                 + [_I] * 5 + [_P, _P, _P])
+_P, _D, _I, _L = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
+# Rays, their count and the width hint, then the grid (tables, the 0-d
+# intensity and saturation on the card, constants, sizes).
+_GRID_ARGTYPES = [_P] * 5 + [_D] * 4 + [_I] * 5
+_ARGTYPES = [_P] * 4 + [_L, _I] + _GRID_ARGTYPES + [_I, _P, _P]
+_VJP_ARGTYPES = [_P] * 5 + [_L, _I] + _GRID_ARGTYPES + [_P, _P, _P]
 _ENTRY = {torch.float32: "bs_star_lookup_f32", torch.float64: "bs_star_lookup_f64"}
 _VJP_ENTRY = {torch.float32: "bs_star_vjp_f32", torch.float64: "bs_star_vjp_f64"}
-THREADS = 128  # threads per block (kThreads in the source)
+THREADS = 128  # threads per block (kThreads in star_walk.cuh): 4 warps
+WARP_TILE = (8, 4)  # the pixels a warp takes with the width hint (kTileW x kTileH)
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +58,37 @@ def build() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def launch_shape(n: int, width: Optional[int] = None):
+    """``(width argument, blocks)`` of a launch over ``n`` rays: the width
+    hint is taken when the rays are a row-major ``width`` × ``n / width``
+    frame (each warp an 8×4 pixel tile), else 0 (32 consecutive rays a
+    warp). The hint decides which thread takes which ray, never a result."""
+    w = int(width) if width and n and n % int(width) == 0 else 0
+    if w:
+        tw, th = WARP_TILE
+        warps = -(-w // tw) * -(-(n // w) // th)
+    else:
+        warps = -(-n // 32)
+    return w, -(-warps // (THREADS // 32))
+
+
+def thread_rays(n: int, width: Optional[int] = None) -> torch.Tensor:
+    """The ray each lane of each warp of the launch takes, ``(warps, 32)``
+    int64, −1 where a lane takes none: the mirror of ``ray_of`` in
+    ``csrc/star_walk.cuh``."""
+    w, blocks = launch_shape(n, width)
+    warp = torch.arange(blocks * (THREADS // 32))[:, None]
+    lane = torch.arange(32)
+    if w:
+        tw, th = WARP_TILE
+        tiles_x = -(-w // tw)
+        x = (warp % tiles_x) * tw + lane % tw
+        y = (warp // tiles_x) * th + lane // tw
+        return torch.where((x < w) & (y < n // w), y * w + x, -1)
+    i = warp * 32 + lane
+    return torch.where(i < n, i, -1)
 
 
 def _checked(grid: StarGrid, vel: torch.Tensor, active: Optional[torch.Tensor], what: str):
@@ -75,23 +111,35 @@ def _checked(grid: StarGrid, vel: torch.Tensor, active: Optional[torch.Tensor], 
     return planes, active.contiguous()
 
 
-def _grid_args(grid: StarGrid, dt, intensity, saturation):
-    """The kernels' grid and shading arguments after the ray pointers."""
+def _grid_args(grid: StarGrid, dt, dev, intensity, saturation, what: str):
+    """The kernels' grid arguments, and the 0-d intensity and saturation on
+    the card that they point to (the caller keeps them until the launch is
+    queued). Nothing here waits for the device."""
+    shading = []
+    for name, v in (("intensity", intensity), ("saturation", saturation)):
+        if v.numel() != 1 or v.device != dev:
+            raise ValueError(f"{what}: {name} must be a one-element tensor on {dev}, "
+                             f"got {tuple(v.shape)} on {v.device}")
+        shading.append(v.reshape(()).to(dt).contiguous())
     a, r2lim, inv2w2 = grid.psf_constants(dt)
-    shading = torch.stack([intensity.to(dt), saturation.to(dt)]).tolist()  # one sync
-    return ((grid.cell_data.data_ptr(), grid.ovf_data.data_ptr(), grid.ovf_octets.data_ptr(),
-             *shading, a, r2lim, inv2w2, math.pi / grid.n_rings),
-            (grid.n_rings, grid.n_cols, grid.pad_k, grid.ovf_data.shape[1] // 8,
-             int(grid.fast_cells_ok(dt))))
+    args = (grid.cell_data.data_ptr(), grid.ovf_data.data_ptr(), grid.ovf_octets.data_ptr(),
+            shading[0].data_ptr(), shading[1].data_ptr(), a, r2lim, inv2w2,
+            math.pi / grid.n_rings, grid.n_rings, grid.n_cols, grid.pad_k,
+            grid.ovf_data.shape[1] // 8, int(grid.fast_cells_ok(dt)))
+    return args, shading
 
 
 def star_lookup_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
-                     saturation: torch.Tensor,
-                     active: Optional[torch.Tensor] = None, clamp: bool = True) -> torch.Tensor:
+                     saturation: torch.Tensor, active: Optional[torch.Tensor] = None,
+                     clamp: bool = True, width: Optional[int] = None) -> torch.Tensor:
     """Star colour (N, 3) for ray directions ``vel`` (N, 3): kernel B3 on a
     CUDA device, :meth:`StarGrid.lookup` on the CPU. ``active`` (N,) bool
     marks the escaped rays; the others get 0. ``clamp=False`` returns the
-    unclamped sums. The kernel's result is an (N, 3) view of its
+    unclamped sums. ``width``, the frame's width when the rays are a
+    row-major frame, lets each warp take an 8×4 pixel tile (fewer distinct
+    table rows); it changes no result. On the card ``intensity`` and
+    ``saturation`` stay there (the kernel reads them), so the call never
+    waits for the device. The kernel's result is an (N, 3) view of its
     plane-major output."""
     dev = vel.device
     if dev.type == "cpu":
@@ -104,11 +152,12 @@ def star_lookup_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
     if not (n and grid.n_stars):
         return torch.zeros((n, 3), dtype=dt, device=dev)
     out = torch.empty((3, n), dtype=dt, device=dev)  # the kernel writes every element
-    tables, ints = _grid_args(grid, dt, intensity, saturation)
+    args, _shading = _grid_args(grid, dt, dev, intensity, saturation, "star_lookup_cuda")
+    hint, _ = launch_shape(n, width)
     fn = getattr(build(), _ENTRY[dt])
     code = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-              active.data_ptr(), n, *tables, *ints, int(clamp),
-              out.data_ptr(), _build.stream_handle(dev))
+              active.data_ptr(), n, hint, *args, int(clamp), out.data_ptr(),
+              _build.stream_handle(dev))
     _build.check(code, "star lookup kernel")
     star_lookup_cuda.launches += 1
     return out.t()
@@ -118,11 +167,13 @@ star_lookup_cuda.launches = 0  # kernel launches: shows the render went through 
 
 
 def star_lookup_vjp_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
-                         saturation: torch.Tensor, active: torch.Tensor, w: torch.Tensor):
+                         saturation: torch.Tensor, active: torch.Tensor, w: torch.Tensor,
+                         width: Optional[int] = None):
     """Reverse of the unclamped lookup for the cotangents ``w`` (N, 3):
     ``(∂L/∂vel (N, 3), ∂L/∂intensity, ∂L/∂saturation)``. Kernel B4 on a
-    CUDA device, :meth:`StarGrid.lookup_vjp` on the CPU. The kernel's
-    ``vel`` gradient is an (N, 3) view of its plane-major output."""
+    CUDA device, :meth:`StarGrid.lookup_vjp` on the CPU; ``width`` as for
+    :func:`star_lookup_cuda`. The kernel's ``vel`` gradient is an (N, 3)
+    view of its plane-major output."""
     dev = vel.device
     if dev.type == "cpu":
         return grid.lookup_vjp(vel, intensity, saturation, active, w)
@@ -139,11 +190,12 @@ def star_lookup_vjp_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Ten
         return torch.zeros((n, 3), dtype=dt, device=dev), zero, zero
     wp = w.t().to(dt).contiguous()
     gvel = torch.empty((3, n), dtype=dt, device=dev)
-    partials = torch.empty((-(-n // THREADS), 2), dtype=dt, device=dev)
-    tables, ints = _grid_args(grid, dt, intensity, saturation)
+    hint, blocks = launch_shape(n, width)
+    partials = torch.empty((blocks, 2), dtype=dt, device=dev)
+    args, _shading = _grid_args(grid, dt, dev, intensity, saturation, "star_lookup_vjp_cuda")
     fn = getattr(build(), _VJP_ENTRY[dt])
     code = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-              active.data_ptr(), wp.data_ptr(), n, *tables, *ints,
+              active.data_ptr(), wp.data_ptr(), n, hint, *args,
               gvel.data_ptr(), partials.data_ptr(), _build.stream_handle(dev))
     _build.check(code, "star VJP kernel")
     star_lookup_vjp_cuda.launches += 1

@@ -10,9 +10,9 @@ phase exits non-zero):
 
 1. the card: CUDA must be available; print versions and the card's name
    and power limit;
-2. build the five kernel sources in the checkout in parallel, with B1's
-   and B2's cubins under ``-Xptxas -v`` (registers, stack, spills) beside
-   them;
+2. build the five kernel sources in the checkout in parallel, with B1's,
+   B2's and B3's + B4's cubins under ``-Xptxas -v`` (registers, stack,
+   spills) beside them;
 3. the march kernel B1 against the plain march on the card, default scene
    at 480×270: in float64 within 1e-7; in float32 held to the plain float64
    march of the same rays no worse than the plain float32 march is
@@ -20,15 +20,22 @@ phase exits non-zero):
    with ``rsqrt`` powers and fused multiply-adds, so near the photon ring
    its float32 orbits part from the plain float32 march's);
 4. the star kernel B3 against the plain lookup on the card, the full
-   470k-star grid and the escaped rays of the 1920×1080 default frame, in
-   float64 and float32;
+   470k-star grid: the escaped rays of the 1920×1080 default frame; all the
+   rays of the 481×271 default frame (a size no 8×4 warp tile divides),
+   passed with and without the width hint; and 2^16 seeded random
+   directions, one cell a lane (the most distinct rows a warp load can
+   touch); each in float64 and float32;
 5. the slice: the render CLI on ``scenes/default.yaml`` at 1920×1080 in
    float32 with stars and bloom; both kernels must carry it (launch counts
    > 0, plain call counts 0) with no truncated ray; then warm per-frame
    times of the render, each kernel and each plain version at the frame's
    shapes, with each kernel held to its plain version there too (B1 by
-   phase 3's float32 gate), and the
-   share of useful lanes in B1's warps from its per-ray step counts;
+   phase 3's float32 gate), the
+   share of useful lanes in B1's warps from its per-ray step counts, the
+   distinct table rows a warp load of B3 touches under several layouts
+   (``scripts/star_rows.py``), and B3's wrapper run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (it must not wait for the
+   card);
 6. a float64 64×36 render through the kernels against the committed
    float64-oracle golden at 1e-7;
 7. default scene at 480×270 in float64 and float32: B1's checkpointing
@@ -46,8 +53,8 @@ phase exits non-zero):
    on which both float32 adjoints agree with float64, read over 8 sets of
    cotangents here and 4 in phase 10);
 8. the star VJP kernel B4 against the plain star VJP, the full 470k-star
-   grid and the escaped rays of the 1920×1080 frame with seeded random
-   cotangents, in float64 and float32;
+   grid, with seeded random cotangents, on phase 4's three sets of rays,
+   in float64 and float32;
 9. the training slice: the fit CLI on ``scenes/default.yaml`` at 1920×1080
    in float32 with the 470k-star sky, fitting ``disk.outer`` for 5 Adam
    steps to a target rendered with ``diskOuter`` 12.5; all four kernels
@@ -60,7 +67,8 @@ phase exits non-zero):
    float32 gate) and timed against the frame variant in turns, with B1's
    registers and stack; B2 (kernel, wrapper, plain version, with its
    registers, stack and shared memory; held in phase 14) and B4 (the same,
-   held to its plain version there);
+   held to its plain version there, its wrapper run under the sync-debug
+   mode as B3's);
 11. the windowed star stage's kernels K1 and K2 against their plain
    versions on the prototype's synthetic grid, fed the same pre-pass
    outputs: float64 at 4 tiles (pointers and masks equal, colours within
@@ -325,12 +333,12 @@ def _check_checkpoints(ckpt, ray_steps, plain, dtype):
         raise AssertionError(f"{dtype}: " + "; ".join(failed))
 
 
-def _check_stars(ker, ref, dtype):
+def _check_stars(ker, ref, dtype, label=""):
     """Hold B3's colours to the plain lookup's; returns the max error."""
     diff = (ker - ref).abs()
     max_err, mean_err = diff.max().item(), diff.mean().item()
     lit = (ref.amax(dim=-1) > 0).sum().item()
-    print(f"  {dtype}: {ref.shape[0]} rays ({lit} lit by stars), max |d| {max_err:.3g}, "
+    print(f"  {dtype}{label}: {ref.shape[0]} rays ({lit} lit by stars), max |d| {max_err:.3g}, "
           f"mean |d| {mean_err:.3g}")
     if lit == 0:
         raise AssertionError("no ray picked up a star")
@@ -398,7 +406,7 @@ def _check_adjoint(ker, ref, fwd_status, dtype, runs=None, rerun=None):
     return err, None
 
 
-def _check_star_vjp(ker, ref, dtype, n_escaped):
+def _check_star_vjp(ker, ref, dtype, n_escaped, label=""):
     """Hold B4's gradients to the plain star VJP's: per plane, B3's gates
     scaled by the output's largest magnitude; the two scalar sums (over
     ~2M rays, summed in other orders) at 1e-9 (f64) and 1e-4 (f32)
@@ -408,7 +416,7 @@ def _check_star_vjp(ker, ref, dtype, n_escaped):
     d = (gk - gr).abs()
     max_err, mean_err = d.max().item(), d.mean().item()
     rel = [abs((k - r).item()) / max(abs(r.item()), 1e-30) for k, r in zip(ker[1:], ref[1:])]
-    print(f"  {dtype}: {gr.shape[0]} rays ({n_escaped} escaped), max |g vel| {scale:.3g}, "
+    print(f"  {dtype}{label}: {gr.shape[0]} rays ({n_escaped} escaped), max |g vel| {scale:.3g}, "
           f"max |d| {max_err:.3g}, mean |d| {mean_err:.3g}; dI rel {rel[0]:.3g}, "
           f"dS rel {rel[1]:.3g} (dI {ref[1].item():.6g}, dS {ref[2].item():.6g})")
     if scale == 0 or ref[1].item() == 0:
@@ -419,6 +427,42 @@ def _check_star_vjp(ker, ref, dtype, n_escaped):
     elif mean_err > 1e-6 * scale or max_err > 3e-2 * scale or max(rel) > 1e-4:
         raise AssertionError("float32 star gradients differ")
     return max_err
+
+
+def _star_cases(dtype, dev):
+    """Phase 4's and 8's further rays for the star kernels: every ray of the
+    481×271 default frame, escaped or not (no 8×4 warp tile divides the
+    frame), with and without the width hint; and 2^16 seeded random
+    directions, 90% active, one cell a lane. Yields (label, directions,
+    active mask, width hints, intensity, saturation)."""
+    from blackstar_tpu_torch.camera import generate_ray_components
+    from blackstar_tpu_torch.geodesic import ESCAPED
+    from blackstar_tpu_torch.ops.march_cuda import march_cuda
+    from blackstar_tpu_torch.render import safe_distance
+
+    cfg = _scene(481, 271, dtype)
+    params, static = cfg.params(dev), cfg.static()
+    dt = static.tdtype
+    shade = (params.stars.intensity, params.stars.saturation)
+    pos0, planes = generate_ray_components(params.camera, 481, 271, dtype=dt)
+    res = march_cuda(pos0, planes, params, static, safe_distance(params, dt))
+    yield "481x271 frame", res.vel, res.status == ESCAPED, (481, None), *shade
+    rng = np.random.default_rng(16)
+    vel = torch.from_numpy(rng.normal(size=(1 << 16, 3))).to(dev, dt)
+    active = torch.from_numpy(rng.uniform(size=1 << 16) < 0.9).to(dev)
+    yield "2^16 random directions", vel, active, (None,), *shade
+
+
+@contextlib.contextmanager
+def _sync_error():
+    """Run the body under ``torch.cuda.set_sync_debug_mode("error")``: any
+    operation in it that waits for the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def main():
@@ -446,7 +490,7 @@ def main():
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.artifact import ensure_star_grid
     from blackstar_tpu_torch.stars.grid import StarGrid, load_star_grid_compact
-    from blackstar_tpu_torch.scripts import kernel_sass, march_accuracy, step_profile
+    from blackstar_tpu_torch.scripts import kernel_sass, march_accuracy, star_rows, step_profile
     from blackstar_tpu_torch.scripts import probe_dynamic_gather as probe
     from blackstar_tpu_torch.scripts import proto_window_kernel as proto
     from blackstar_tpu_torch.stars import window
@@ -461,16 +505,17 @@ def main():
     print(card)
 
     # ---- 2. build ------------------------------------------------------
-    # One nvcc per source, all started together; beside them B1's and B2's
-    # cubins with `-Xptxas -v`, for their registers, stack and spills.
+    # One nvcc per source, all started together; beside them B1's, B2's and
+    # B3's + B4's cubins with `-Xptxas -v`, for their registers, stack and spills.
     _banner("2. build")
     t0 = time.perf_counter()
     jobs = {"B1 march": b1.build, "B2 march adjoint": b2.build,
             "B3 star lookup + B4 star VJP": b3.build, "K1 + K2 windowed stage": wk.build,
             "gather probe": probe.build}
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 3) as pool:
         futures = [pool.submit(fn) for fn in jobs.values()]
-        cubins = {m: pool.submit(kernel_sass.compile_cubin, m.SOURCE, m.FLAGS) for m in (b1, b2)}
+        cubins = {m: pool.submit(kernel_sass.compile_cubin, m.SOURCE, m.FLAGS)
+                  for m in (b1, b2, b3)}
         for fut in futures:
             fut.result()
         ptxas = {m: kernel_sass.resources(fut.result()[0]) for m, fut in cubins.items()}
@@ -517,7 +562,13 @@ def main():
         ker = b3.star_lookup_cuda(grid, vel, inten, sat)
         ref = grid.lookup(vel, inten, sat)
         torch.cuda.synchronize()
-        _check_stars(ker, ref, dtype)
+        _check_stars(ker, ref, dtype, ", 1920x1080 escaped rays")
+        for label, v, act, hints, i, s in _star_cases(dtype, dev):
+            ref = grid.lookup(v, i, s, act)
+            for hint in hints:
+                ker = b3.star_lookup_cuda(grid, v, i, s, act, width=hint)
+                torch.cuda.synchronize()
+                _check_stars(ker, ref, dtype, f", {label}, width hint {hint}")
         if dtype == "float32":
             grid32 = grid
         del grid, res, vel, ker, ref
@@ -606,14 +657,21 @@ def main():
 
     escaped = ker.status == ESCAPED
     inten, sat = params.stars.intensity, params.stars.saturation
-    s_ker = b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped)
+    def b3_call():  # as the frame calls it: all rays, the escaped mask, the width hint
+        return b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped, width=1920)
+
+    s_ker = b3_call()
     s_ref = grid32.lookup(ker.vel, inten, sat, escaped)
     torch.cuda.synchronize()
-    print("  B3 at the frame's shape (all rays, escaped mask):")
+    print("  B3 at the frame's shape (all rays, escaped mask, width hint):")
     b3_err = _check_stars(s_ker, s_ref, "float32")
-    b3_ms = _cuda_ms(lambda: b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped), 10)
-    b3_kernel_ms = _kernel_ms(lambda: b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped),
-                              "star_lookup_kernel", 10)
+    with _sync_error():
+        b3_call()
+        b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped, clamp=False, width=1920)
+    print("  B3's wrapper (clamped and unclamped) ran under sync-debug mode 'error': it "
+          "never waited for the card")
+    b3_ms = _cuda_ms(b3_call, 10)
+    b3_kernel_ms = _kernel_ms(b3_call, "star_lookup_kernel", 10)
     lookup_ms = _host_ms(lambda: grid32.lookup(ker.vel, inten, sat, escaped), 2)
     n_escaped = int(escaped.sum())
     star_table_bytes, star_slots = _star_work(grid32, ker.vel, escaped)
@@ -622,6 +680,10 @@ def main():
                       star_slots * STAR_OPS_PER_SLOT)
     print(f"  B3 work: {star_table_bytes / 2**20:.1f} MiB of distinct table rows, "
           f"{star_slots} slots scanned, bound {b3_bound[0]:.3f} ms by {b3_bound[1]}")
+    print("  distinct table rows one warp load touches (scripts/star_rows.py):")
+    star_rows.print_rows(grid32, ker.vel, escaped, 1920, 1080)
+    for name, line in ptxas[b3].items():
+        print(f"    ptxas -v, {name}: {line}")
 
     def plain_frame():
         """The same frame through the plain march and plain lookup."""
@@ -643,7 +705,7 @@ def main():
                             ("B3 star wrapper", b3_ms, lookup_ms)):
         print(f"  {what}: {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
     print(f"  device time of the kernels alone: B1 {b1_kernel_ms:.3f} ms, "
-          f"B3 {b3_kernel_ms:.3f} ms  [{card}]")
+          f"B3 {b3_kernel_ms:.3f} ms (its wrapper {b3_ms - b3_kernel_ms:+.3f} ms)  [{card}]")
 
     # ---- 6. float64 golden through the kernels -------------------------
     _banner("6. float64 64x36 render through the kernels vs the oracle golden")
@@ -728,10 +790,18 @@ def main():
         esc = res.status == ESCAPED
         w = torch.from_numpy(w_np).to(dev, dt)
         inten, sat = params.stars.intensity, params.stars.saturation
-        ker = b3.star_lookup_vjp_cuda(grid, res.vel, inten, sat, esc, w)
+        ker = b3.star_lookup_vjp_cuda(grid, res.vel, inten, sat, esc, w, width=1920)
         ref = grid.lookup_vjp(res.vel, inten, sat, esc, w)
         torch.cuda.synchronize()
-        _check_star_vjp(ker, ref, dtype, int(esc.sum()))
+        _check_star_vjp(ker, ref, dtype, int(esc.sum()), ", 1920x1080 frame, width hint 1920")
+        for label, v, act, hints, i, s in _star_cases(dtype, dev):
+            wc = torch.from_numpy(np.random.default_rng(9).normal(size=(v.shape[0], 3))).to(dev, dt)
+            ref = grid.lookup_vjp(v, i, s, act, wc)
+            for hint in hints:
+                ker = b3.star_lookup_vjp_cuda(grid, v, i, s, act, wc, width=hint)
+                torch.cuda.synchronize()
+                _check_star_vjp(ker, ref, dtype, int(act.sum()),
+                                f", {label}, width hint {hint}")
         del grid, res, ker, ref
         torch.cuda.empty_cache()
 
@@ -905,10 +975,15 @@ def main():
     inten, sat = params.stars.intensity, params.stars.saturation
     w = torch.from_numpy(w_np).to(dev, dt)
 
-    def b4_call():
-        return b3.star_lookup_vjp_cuda(grid32, fwd.vel, inten, sat, escaped, w)
+    def b4_call():  # as the training step calls it, with the width hint
+        return b3.star_lookup_vjp_cuda(grid32, fwd.vel, inten, sat, escaped, w, width=1920)
 
     s_ker = b4_call()
+    with _sync_error():
+        b4_call()
+    print("  B4's wrapper ran under sync-debug mode 'error': it never waited for the card")
+    for name, line in ptxas[b3].items():
+        print(f"    ptxas -v, {name}: {line}")
     s_ref = grid32.lookup_vjp(fwd.vel, inten, sat, escaped, w)
     torch.cuda.synchronize()
     print("  B4 at the training shape (all rays, escaped mask, seeded random cotangents):")
@@ -1136,11 +1211,13 @@ def main():
          "replaces": "blackstar_tpu/stars/grid.py:717",
          "launches": fit_launches["b3"], "launches_render": launches["b3"],
          "max_abs_err": b3_err, "ms": b3_ms, "kernel_ms": b3_kernel_ms, "plain_ms": lookup_ms,
+         "ptxas": ptxas[b3].get("star_lookup_kernel<float>"),
          "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None},
         {"name": "star VJP (B4)", "route": "cuda",
          "source": "blackstar_tpu_torch/stars/csrc/star_lookup.cu",
          "replaces": "blackstar_tpu/stars/grid.py:377",
          "launches": fit_launches["b4"], "max_abs_err": b4_err, "ms": b4_ms,
+         "ptxas": ptxas[b3].get("star_vjp_kernel<float>"),
          "kernel_ms": b4_kernel_ms, "plain_ms": star_vjp_ms,
          "bound_ms": b4_bound[0], "bound_by": b4_bound[1], "library_ms": None},
         {"name": "windowed stage base pass (K1)", "route": "cuda",
