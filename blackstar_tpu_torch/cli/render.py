@@ -5,19 +5,26 @@ Usage::
     python -m blackstar_tpu_torch render SCENE.yaml [-o DIR] [--preview] [--force]
                                          [--starmap stars.grid.npz] [--stats]
                                          [--resume] [--device cuda]
+                                         [--profile DIR] [--shard-scenes I/N]
 
 A directory input renders every ``*.yaml`` inside it in sorted order (batch
-mode, app/Main.hs:64-78). ``--preview`` caps the long side at 300 px and
-disables supersampling/bloom (app/Main.hs:93-103), prefixing outputs with
-``prev-``. ``--device`` (default ``cuda``) picks where the frame is
-rendered: on a CUDA device through the march and star kernels, on ``cpu``
-through their plain PyTorch versions. The default starmap, missing on a
+mode, app/Main.hs:64-78); ``--shard-scenes I/N`` renders only scenes
+I, I+N, I+2N, ... of them (one host of N), and with ``--force`` the frames
+go to the native writer pool, which writes a scene's PNG while the next
+scene renders. ``--profile DIR`` records a torch.profiler trace of the
+renders (CPU and, on a CUDA device, CUDA activity) into DIR. ``--preview``
+caps the long side at 300 px and disables supersampling/bloom
+(app/Main.hs:93-103), prefixing outputs with ``prev-``. ``--device``
+(default ``cuda``) picks where the frame is rendered: on a CUDA device
+through the march and star kernels, on ``cpu`` through their plain PyTorch
+versions. The default starmap, missing on a
 fresh checkout, is built from ``stars.ppm`` on first use.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -45,6 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument(
+        "--profile", metavar="DIR", default="",
+        help="record a torch.profiler trace of the renders into DIR",
+    )
+    p.add_argument(
+        "--shard-scenes", metavar="I/N", default="",
+        help="batch mode across hosts: render only scenes i, i+N, i+2N, ... "
+        "(e.g. --shard-scenes 0/4 on host 0 of 4)",
+    )
     return p
 
 
@@ -94,7 +110,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def handle_scene(args, star_grid, outdir: str, filename: str, device: torch.device) -> bool:
+def handle_scene(args, star_grid, outdir: str, filename: str, device: torch.device,
+                 writer=None) -> bool:
     from blackstar_tpu_torch.config import apply_preview, load_config
     from blackstar_tpu_torch.imageio import encode_rgb8, write_png
     from blackstar_tpu_torch.ops.filters import bloom
@@ -147,8 +164,76 @@ def handle_scene(args, star_grid, outdir: str, filename: str, device: torch.devi
     rgb8 = encode_rgb8(img).cpu().numpy()
 
     print(f"Saving to {out_name}...")
-    prompt_overwrite_file(out_name, lambda p: write_png(rgb8, p), force=args.force)
+    if writer is not None:
+        # Batch mode with the native pool (--force is the overwrite
+        # consent): a writer thread writes the frame while the next scene
+        # renders.
+        writer.submit(out_name, rgb8)
+    else:
+        prompt_overwrite_file(out_name, lambda p: write_png(rgb8, p), force=args.force)
     return True
+
+
+def _profiler(outdir: str, device: torch.device):
+    """A torch.profiler session that exports its trace into ``outdir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(outdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+
+    def export(prof):
+        path = os.path.join(outdir, f"render-{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profile written to {path}.")
+
+    return profile(activities=activities, on_trace_ready=export)
+
+
+def _make_writer(args):
+    """The native PNG pool for batch mode: needs --force and the library."""
+    from blackstar_tpu_torch import native
+    from blackstar_tpu_torch.video import WRITER_THREADS
+
+    if not args.force or not native.available():
+        return None
+    return native.AsyncFrameWriter(WRITER_THREADS)
+
+
+def _render_batch(args, star_grid, outdir: str, dirname: str, device: torch.device) -> int:
+    print(f"{dirname} is a directory. Rendering all scenes inside it...")
+    files = sorted(os.path.join(dirname, f) for f in os.listdir(dirname) if f.endswith(".yaml"))
+    if args.shard_scenes:
+        # Frame-parallel batch across hosts (the reference's manual
+        # multi-node workflow, README.md:89-93, made a flag).
+        try:
+            i, n = (int(v) for v in args.shard_scenes.split("/"))
+            if not 0 <= i < n:
+                raise ValueError
+        except ValueError:
+            print(f"invalid --shard-scenes {args.shard_scenes!r} (expected I/N with 0 <= I < N)")
+            return 2
+        files = files[i::n]
+    writer = _make_writer(args)
+    oks = []
+    try:
+        for idx, scn in enumerate(files, 1):
+            clear_screen()
+            print(f"Batch mode progress: {idx}/{len(files)}")
+            oks.append(handle_scene(args, star_grid, outdir, scn, device, writer=writer))
+    finally:
+        if writer is not None:
+            errors = writer.wait()
+            writer.close()
+            if errors:
+                print(f"Warning: {errors} frame(s) failed to write.")
+    # Reference batch semantics: failures are printed and skipped
+    # (app/Main.hs:72-78); exit non-zero only if nothing rendered.
+    if files and not any(oks):
+        print(f"Error: all {len(files)} scene(s) failed to render.")
+        return 1
+    return 0
 
 
 def main(argv=None) -> int:
@@ -161,23 +246,13 @@ def main(argv=None) -> int:
     os.makedirs(outdir, exist_ok=True)
 
     filename = normalize_path(args.inputfile)
-    if os.path.isdir(filename):
-        print(f"{filename} is a directory. Rendering all scenes inside it...")
-        files = sorted(
-            os.path.join(filename, f) for f in os.listdir(filename) if f.endswith(".yaml")
-        )
-        oks = []
-        for idx, scn in enumerate(files, 1):
-            clear_screen()
-            print(f"Batch mode progress: {idx}/{len(files)}")
-            oks.append(handle_scene(args, star_grid, outdir, scn, device))
-        # Reference batch semantics: failures are printed and skipped
-        # (app/Main.hs:72-78); exit non-zero only if nothing rendered.
-        if files and not any(oks):
-            print(f"Error: all {len(files)} scene(s) failed to render.")
+    with _profiler(args.profile, device) if args.profile else contextlib.nullcontext():
+        if os.path.isdir(filename):
+            rc = _render_batch(args, star_grid, outdir, filename, device)
+            if rc:
+                return rc
+        elif not handle_scene(args, star_grid, outdir, filename, device):
             return 1
-    elif not handle_scene(args, star_grid, outdir, filename, device):
-        return 1
     print("Everything done. Thank you!")
     return 0
 

@@ -3,8 +3,9 @@
 Reference semantics: per-channel sRGB gamma
 ``x < 0.0031308 ? 12.92·x : 1.055·x^(1/2.4) − 0.055`` followed by a clamp to
 [0,1] and round-half-even quantisation to uint8 (Raytracer.hs:23-32 and the
-colour library's ``toWord8``). PNGs are written by a small pure-Python
-encoder, so no imaging library is needed.
+colour library's ``toWord8``). PNGs are written by the native library
+(``native.py``) when it can be built, else by a small pure-Python encoder;
+both write the same pixels, so no imaging library is needed.
 """
 
 from __future__ import annotations
@@ -99,9 +100,16 @@ def read_png(path: str) -> np.ndarray:
 def write_png(img, path: str) -> None:
     """Write an (H, W, 3) image (array or tensor) as an 8-bit RGB PNG. A
     uint8 image is taken as already sRGB-encoded; a float one as linear RGB,
-    encoded here in float64 (Raytracer.hs:29-32)."""
+    encoded here in float64 (Raytracer.hs:29-32). The encoded pixels go to
+    the native writer when the library is available, else to the pure-Python
+    encoder: the pixels are the same on both routes."""
     t = torch.as_tensor(img).cpu()
     if t.dtype != torch.uint8:
         t = encode_rgb8(t.to(torch.float64))
+    rgb8 = np.ascontiguousarray(t.numpy())
+    from blackstar_tpu_torch import native
+
+    if native.write_png_rgb8(rgb8, path):
+        return
     with open(path, "wb") as f:
-        f.write(_png_bytes(np.ascontiguousarray(t.numpy())))
+        f.write(_png_bytes(rgb8))

@@ -56,28 +56,36 @@ def safe_distance(params: SceneParams, dtype) -> torch.Tensor:
     return torch.maximum((50.0 * rs) ** 2, 2.0 * torch.dot(p, p))
 
 
+def star_layer(res: MarchResult, params: SceneParams, star_grid, dt,
+               differentiable: bool = False, width=None) -> torch.Tensor:
+    """The bottom layer (N, 3): celestial-sphere stars for escaped rays,
+    black for horizon-captured and step-cap-truncated rays
+    (Raytracer.hs:88-95). ``width``, the frame's width when the rays are
+    its pixels in row-major order, is the star kernels' layout hint (no
+    result depends on it)."""
+    escaped = res.status == ESCAPED
+    if star_grid is None:
+        return torch.zeros((res.vel.shape[0], 3), dtype=dt, device=res.vel.device)
+    lookup = lookup_diff if differentiable else star_lookup_cuda
+    star_rgb = lookup(
+        star_grid, res.vel,
+        params.stars.intensity.to(dt), params.stars.saturation.to(dt),
+        escaped, width=width,
+    )
+    return torch.where(escaped[:, None], star_rgb, torch.zeros((), dtype=dt, device=star_rgb.device))
+
+
+def composite(acc_rgba: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """The bottom layer under the accumulated disk RGBA (blend,
+    Raytracer.hs:34-37)."""
+    return acc_rgba[:, :3] + bottom * (1.0 - acc_rgba[:, 3:4])
+
+
 def shade(res: MarchResult, params: SceneParams, star_grid, dt,
           differentiable: bool = False, width=None) -> torch.Tensor:
-    """Composite the bottom layer under the accumulated disk RGBA.
-
-    Bottom = celestial-sphere stars (alpha 1) for escaped rays, black for
-    horizon-captured and step-cap-truncated rays (Raytracer.hs:88-95, blend
-    at :34-37). ``width``, the frame's width when the rays are its pixels in
-    row-major order, is the star kernels' layout hint (no result depends
-    on it)."""
-    escaped = res.status == ESCAPED
-    if star_grid is not None:
-        lookup = lookup_diff if differentiable else star_lookup_cuda
-        star_rgb = lookup(
-            star_grid, res.vel,
-            params.stars.intensity.to(dt), params.stars.saturation.to(dt),
-            escaped, width=width,
-        )
-        bottom = torch.where(escaped[:, None], star_rgb, torch.zeros((), dtype=dt, device=star_rgb.device))
-    else:
-        bottom = torch.zeros((res.vel.shape[0], 3), dtype=dt, device=res.vel.device)
-    acc = res.acc_rgba
-    return acc[:, :3] + bottom * (1.0 - acc[:, 3:4])
+    """Composite the bottom layer (:func:`star_layer`) under the
+    accumulated disk RGBA."""
+    return composite(res.acc_rgba, star_layer(res, params, star_grid, dt, differentiable, width))
 
 
 def run_march(pos0, vel0, params: SceneParams, static: StaticConfig, *,

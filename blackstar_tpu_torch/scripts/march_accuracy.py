@@ -18,7 +18,12 @@ march of the same rays, no worse than the plain float32 march is held to it.
 (d) on those of them that escaped, the escape-direction error at p99.9 is
     at most 2 × the plain's + 1e-6, and the count over 2e-4 at most 2 × the
     plain's + 10;
-(e) the executed step count is within 2 of the plain march's.
+(e) the executed step count (the longest-lived ray's) is within 2 of the
+    plain march's, or no farther from the float64 march's than the plain
+    march's is, + 2: the longest-lived ray can be one that both float32
+    marches classify otherwise than float64 (``scenes/fartheraway.yaml`` at
+    3840×2160: a ray float64 captures at step 256 escapes after 566 steps
+    in B1 and 572 in the plain float32 march).
 
 :func:`checkpoint_gate` holds B1's checkpoints and per-ray step counts to
 the plain checkpointing march's: in float64, equal counts on all but 1e-4
@@ -150,8 +155,10 @@ def march_gate(ker, plain, ref64):
     if k.dir_over > 2 * p.dir_over + 10:
         failed.append(f"(d) escape directions over {DIR_TOL:g} {k.dir_over} > 2 x "
                       f"{p.dir_over} + 10")
-    if abs(k.steps - p.steps) > 2:
-        failed.append(f"(e) steps {k.steps} vs the plain march's {p.steps}")
+    s64 = int(ref64.steps)
+    if abs(k.steps - p.steps) > 2 and abs(k.steps - s64) > abs(p.steps - s64) + 2:
+        failed.append(f"(e) steps {k.steps} vs the plain march's {p.steps} and the float64 "
+                      f"march's {s64}")
     return k, p, failed
 
 

@@ -2,6 +2,7 @@ from blackstar_tpu_torch.stars.catalog import parse_ppm, SPECTRAL_COLORS, spectr
 from blackstar_tpu_torch.stars.grid import (
     CompactStarGrid,
     StarGrid,
+    build_star_grid,
     build_star_grid_compact,
     load_star_grid,
     save_star_grid,
@@ -13,6 +14,7 @@ __all__ = [
     "spectral_color",
     "CompactStarGrid",
     "StarGrid",
+    "build_star_grid",
     "build_star_grid_compact",
     "load_star_grid",
     "save_star_grid",

@@ -575,11 +575,36 @@ def build_star_grid_compact(
     )
 
 
-def save_star_grid(grid: CompactStarGrid, path: str) -> str:
-    """Serialise a compact grid to the v6 ``.npz``; returns the path
-    written (the ``.npz`` suffix is appended when missing)."""
+def build_star_grid(
+    catalog: Catalog,
+    *,
+    device,
+    dtype: torch.dtype = torch.float32,
+    cell_size: float = DEFAULT_CELL_SIZE,
+    k0: int = DEFAULT_K0,
+    psf_width: float = PSF_WIDTH,
+    radius: Optional[float] = None,
+) -> StarGrid:
+    """Build (:func:`build_star_grid_compact`) and densify
+    (:meth:`CompactStarGrid.to_grid`) in one step."""
+    compact = build_star_grid_compact(
+        catalog, cell_size=cell_size, k0=k0, psf_width=psf_width, radius=radius
+    )
+    return compact.to_grid(device, dtype=dtype)
+
+
+def save_star_grid(grid, path: str) -> str:
+    """Serialise a grid to the v6 ``.npz``; returns the path written (the
+    ``.npz`` suffix is appended when missing). Takes a
+    :class:`CompactStarGrid` (the offline build's product) or a dense
+    :class:`StarGrid` (turned back into the compact form first). Slot values
+    are stored as float64 but keep the precision of the grid saved: a dense
+    grid at float32 round-trips with float32 values."""
+    if isinstance(grid, StarGrid):
+        grid = _dense_to_compact(grid)
     if not isinstance(grid, CompactStarGrid):
-        raise TypeError(f"save_star_grid takes a CompactStarGrid, got {type(grid).__name__}")
+        raise TypeError(f"save_star_grid takes a CompactStarGrid or a StarGrid, "
+                        f"got {type(grid).__name__}")
     if not path.endswith(".npz"):
         path = path + ".npz"
     # Atomic write: an interrupted build never leaves a truncated file at
@@ -600,6 +625,58 @@ def save_star_grid(grid: CompactStarGrid, path: str) -> str:
     )
     os.replace(tmp, path)
     return path
+
+
+def _dense_to_compact(grid: StarGrid) -> CompactStarGrid:
+    """Recover the CSR form from the dense tables (the layout
+    :meth:`CompactStarGrid.tables` writes: K0 base slots a cell, one
+    overflow row per dense cell through the pointer in base slot 0's aux
+    column). Sentinels are unambiguous: a real candidate has mag ≪ 1e9.
+    The star table is rebuilt by deduplicating identical slot rows (halo
+    copies of a star are exact duplicates), so its order is not
+    that of :func:`build_star_grid_compact`."""
+    base = grid.cell_data.detach().cpu().double().numpy()
+    base = base.reshape(base.shape[0], -1, _ROW).copy()
+    ovf = grid.ovf_data.detach().cpu().double().numpy()
+    ovf = ovf.reshape(ovf.shape[0], -1, _ROW)
+    c, k0 = base.shape[0], base.shape[1]
+    ptr = base[:, 0, 7].astype(np.int64)
+    base[:, 0, 7] = 0.0
+
+    bvalid = base[..., 3] < _SENTINEL_MAG / 2  # (C, K0)
+    bcounts = bvalid.sum(axis=1).astype(np.int64)
+    ocounts_row = (ovf[..., 3] < _SENTINEL_MAG / 2).sum(axis=1).astype(np.int64)
+    ocells = np.flatnonzero(ptr > 0)
+    ocounts = np.zeros(c, np.int64)
+    ocounts[ocells] = ocounts_row[ptr[ocells]]
+    # Valid slots are a prefix of every row, so CSR order is the cells in
+    # order, each its base slots, then its overflow slots.
+    orows = ovf[ptr[ocells]]
+    rows = np.concatenate([base[bvalid],
+                           orows[orows[..., 3] < _SENTINEL_MAG / 2]])
+    cell_of = np.concatenate([np.repeat(np.arange(c), bcounts), np.repeat(ocells, ocounts[ocells])])
+    slot_of = np.concatenate([
+        np.concatenate([np.arange(k) for k in bcounts]) if c else np.zeros(0, np.int64),
+        k0 + (np.concatenate([np.arange(k) for k in ocounts[ocells]]) if len(ocells)
+              else np.zeros(0, np.int64)),
+    ])
+    rows = rows[np.lexsort((slot_of, cell_of))]
+    view = np.ascontiguousarray(rows).view(
+        np.dtype((np.void, rows.dtype.itemsize * rows.shape[1]))
+    ).reshape(-1)
+    uniq, ids = np.unique(view, return_inverse=True)
+    star_rows = uniq.view(rows.dtype).reshape(-1, rows.shape[1])
+    return CompactStarGrid(
+        counts=(bcounts + ocounts).astype(np.int32),
+        star_ids=ids.reshape(-1).astype(np.int32),
+        star_rows=star_rows,
+        n_rings=grid.n_rings,
+        n_cols=grid.n_cols,
+        n_stars=grid.n_stars,
+        psf_width=grid.psf_width,
+        radius=grid.radius,
+        k0=k0,
+    )
 
 
 def load_star_grid_compact(path: str) -> CompactStarGrid:

@@ -86,7 +86,32 @@ phase exits non-zero):
    blackstar_tpu_torch.scripts.probe_dynamic_gather``: the row gather, lane
    gather and range copy kernels at every size, each equal bit for bit to
    its plain version, with their times and the library calls' times;
-14. B2 at the 1920×1080 training shape held as in phase 7, over 4 sets of
+14. the animation: ``python -m blackstar_tpu_torch animate
+   animations/default-ani.yaml --render -f`` (375 frames at 1920×1080
+   supersampled, float32, the 470k-star sky, bloom 0.7); B1 and B3 must
+   carry it, each launched once a frame (375 times) with no plain call, the
+   native PNG writer pool must write it (the phase fails if the library
+   does not build), and frames 0 and 374 must be within 1 on the uint8 scale
+   of direct renders at the keyframe cameras; then
+   ``scripts/bench_animation.py`` at full size: frames/s with the PNG
+   writes and with the frames dropped after their copy, the device's busy
+   time a frame and idle share and the host's waits (torch.profiler over a
+   few frames, taken before any plain-version gate of the later phases),
+   and the peak allocated memory;
+15. all nine reference scenes: in float64 through B1 and B3, at 16 px
+   with a small star catalogue lit in each scene against
+   ``tests/oracle.py`` computed now (one process a scene), and the three
+   disk scenes at 64 px against the committed oracle goldens, each within
+   1e-7 and with no truncated ray; the render CLI in batch mode on
+   ``scenes/`` at full size in float32 with stars, bloom and ``-f`` (the
+   native writer pool): nine PNGs, B1 and B3 launched once a scene (9
+   times) with no plain call, each scene's truncated share (``--stats``);
+   then per scene its warm frame time and its full-size rays through B1's
+   float32 gate (phase 3's) and B3's float32 gates;
+16. the star build side: ``python -m blackstar_tpu_torch generate-grid
+   stars.ppm`` at the production defaults, its ``.npz`` arrays equal to
+   those of the grid phase 4 loaded;
+17. B2 at the 1920×1080 training shape held as in phase 7, over 4 sets of
    cotangents: last, because the plain adjoints' millions of launches
    before a profile left torch.profiler blind to B2.
 
@@ -102,7 +127,9 @@ B1's ``ckpt_ms`` / ``ckpt_kernel_ms`` are its checkpointing variant's;
 the plain float64 march and adjoint, with ``plain_max_abs_err`` the plain
 float32 version's beside it);
 ``launches`` the count in the fit CLI's run (``launches_render``: in the
-render CLI's run; K1, K2 and the probe kernels: in their entry points'
+render CLI's run of phase 5; B1's and B3's ``launches_animation`` and
+``launches_scenes``: in the animate CLI's run of phase 14 and the batch
+render of phase 15; K1, K2 and the probe kernels: in their entry points'
 runs); ``bound_ms`` the least time the card could take for the same work on
 this run's data (the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s, float32 without tensor cores).
@@ -114,6 +141,7 @@ import dataclasses
 import glob
 import io
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -220,6 +248,7 @@ ADJOINT_OPS_PER_STEP = 310
 # difference (3), d^2 (5) and the cutoff compare (1). The PSF of the few
 # slots inside the cutoff is left out.
 STAR_OPS_PER_SLOT = 9
+ANIMATION = os.path.join("animations", "default-ani.yaml")
 # The TPU probe kernels the gather probe's kernels replace.
 PROBE_REPLACES = {"row gather": "scripts/probe_dynamic_gather.py:42",
                   "lane gather": "scripts/probe_dynamic_gather.py:54",
@@ -463,6 +492,281 @@ def _sync_error():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def _escape_catalog(dev, per_scene=30, seed=14):
+    """A small star catalogue lit in every reference scene at 16 px: stars
+    (numpy seed) within 3e-4 rad of escape directions of each scene's
+    16-px float64 frame, through B1."""
+    from blackstar_tpu_torch.camera import generate_rays
+    from blackstar_tpu_torch.geodesic import ESCAPED
+    from blackstar_tpu_torch.ops.march_cuda import march_cuda
+    from blackstar_tpu_torch.render import safe_distance
+    from blackstar_tpu_torch.stars.catalog import Catalog, spectral_color
+    from tests.test_torch_scenes_golden import SCENES, scene_at
+
+    rng = np.random.default_rng(seed)
+    picks = []
+    for path in SCENES:
+        cfg = scene_at(path, 16)
+        params, static = cfg.params(dev), cfg.static()
+        pos, vel = generate_rays(params.camera, static.render_width, static.render_height,
+                                 dtype=torch.float64)
+        res = march_cuda(pos, vel, params, static, safe_distance(params, torch.float64))
+        esc = torch.nn.functional.normalize(res.vel[res.status == ESCAPED], dim=-1).cpu().numpy()
+        picks.append(esc[rng.choice(len(esc), min(per_scene, len(esc)), replace=False)])
+    pos = np.concatenate(picks)
+    pos = pos + 3e-4 * rng.normal(size=pos.shape)
+    pos /= np.linalg.norm(pos, axis=-1, keepdims=True)
+    chars = rng.choice(list("OBAFGKM?"), len(pos))
+    return Catalog(pos=pos, mag=rng.integers(300, 1300, len(pos)).astype(np.int32),
+                   hue=np.array([spectral_color(c)[0] for c in chars]),
+                   sat=np.array([spectral_color(c)[1] for c in chars]))
+
+
+def _oracle_scenes(dev):
+    """The all-scenes gate through the kernels in float64: the nine scenes at
+    16 px with a star catalogue lit in each (B1 and B3) against
+    ``tests/oracle.py`` computed now (one process a scene), and the three
+    disk scenes at 64 px without stars (B1) against the committed goldens
+    of the oracle; each at atol 1e-7, with no truncated ray. Returns
+    [(scene, width, max |d|, pixels the stars change)]."""
+    from blackstar_tpu_torch.render import render
+    from blackstar_tpu_torch.stars.grid import build_star_grid_compact
+    from tests import oracle
+    from tests.test_torch_scenes_golden import DISK_SCENES, SCENES, golden_path, scene_at
+
+    catalog = _escape_catalog(dev)
+    grid = build_star_grid_compact(catalog, cell_size=0.006, radius=0.0075, k0=32).to_grid(
+        dev, dtype=torch.float64)
+    cases = [(p, 16, catalog, grid) for p in SCENES]
+    cases += [(p, 64, None, None) for p in DISK_SCENES]
+    ctx = multiprocessing.get_context("spawn")
+    workers = min(len(SCENES), os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        wants = [pool.submit(oracle.render, scene_at(p, w), cat) if cat is not None else None
+                 for p, w, cat, _ in cases]
+        out = []
+        for (path, width, cat, g), fut in zip(cases, wants):
+            cfg = scene_at(path, width)
+            img, stats = render(cfg.params(dev), cfg.static(), g, with_stats=True)
+            if float(stats.truncated_frac) != 0.0:
+                raise AssertionError(f"{path} at {width} px truncated rays")
+            if fut is None:
+                want = np.load(golden_path(cfg, path, width))
+            else:
+                want = fut.result()
+            got = img.cpu().numpy()
+            err = float(np.abs(got - want).max())
+            lit = 0
+            if g is not None:  # pixels the stars change
+                bare = render(cfg.params(dev), cfg.static(), None).cpu().numpy()
+                lit = int((np.abs(got - bare).max(axis=-1) > 1e-9).sum())
+            out.append((os.path.basename(path), width, err, lit))
+            if err > 1e-7:
+                raise AssertionError(f"{path} at {width} px: max |d| {err:.3g} > 1e-7 from the "
+                                     "oracle")
+    return out
+
+
+def _animation_phase(dev, grid32, card):
+    """Phase 14 (module docstring); returns B1's and B3's launches in the
+    animate CLI's run."""
+    from blackstar_tpu_torch import geodesic, native
+    from blackstar_tpu_torch.animation import load_animation
+    from blackstar_tpu_torch.cli import animate as cli_animate
+    from blackstar_tpu_torch.imageio import encode_rgb8, read_png
+    from blackstar_tpu_torch.ops import march_cuda as b1
+    from blackstar_tpu_torch.ops.filters import bloom
+    from blackstar_tpu_torch.render import render
+    from blackstar_tpu_torch.scripts import bench_animation
+    from blackstar_tpu_torch.stars import lookup_cuda as b3
+    from blackstar_tpu_torch.stars.grid import StarGrid
+    from blackstar_tpu_torch.video import animation_config
+
+    _banner("14. animation: animate --render, animations/default-ani.yaml, 375 frames at "
+            "1920x1080 supersampled, float32, 470k-star sky")
+
+    print(f"  native PNG library: {native.library_path() if native.available() else 'unavailable'}"
+          + ("" if native.available() else f" ({native.load_error})"))
+    if not native.available():
+        raise AssertionError("the native PNG library did not build: the animation would be "
+                             "written by the pure-Python writer")
+    anim = load_animation(os.path.join(ROOT, ANIMATION))
+    ani_dir = os.path.join(ROOT, "build", "chip_smoke_ani")  # gitignored
+    torch.cuda.empty_cache()
+    try:
+        b1.march_cuda.launches = b3.star_lookup_cuda.launches = 0
+        geodesic.march.calls = StarGrid.lookup.calls = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_animate.main([ANIMATION, "--render", "-o", ani_dir, "-f"])
+        ani_s = time.perf_counter() - t0
+        ani_launches = {"b1": b1.march_cuda.launches, "b3": b3.star_lookup_cuda.launches}
+        ani_plain = {"march": geodesic.march.calls, "lookup": StarGrid.lookup.calls}
+        text = log.getvalue().replace("\r", "\n")
+        lines = [ln for ln in text.splitlines() if ln and not ln.startswith("Frame ")]
+        print("  | " + "\n  | ".join(lines))
+        print(f"  CLI run {ani_s:.1f} s (cold: includes loading the star tables), rc {rc}, "
+              f"kernel launches {ani_launches}, plain calls {ani_plain}")
+        if rc != 0:
+            raise AssertionError(f"animate CLI returned {rc}")
+        if "PNG writer: native pool" not in text:
+            raise AssertionError("the animation was not written by the native writer pool")
+        if ani_launches != {"b1": 375, "b3": 375} or max(ani_plain.values()) != 0:
+            raise AssertionError("the animation did not go through B1 and B3 alone, once a frame")
+        pngs = sorted(glob.glob(os.path.join(ani_dir, "default-ani_*.png")))
+        if len(pngs) != 375:
+            raise AssertionError(f"expected 375 frames, found {len(pngs)}")
+        cfg = animation_config(anim)
+        static = cfg.static()
+        print(f"  frame {static.width}x{static.height}, {static.n_rays} rays, step cap "
+              f"{static.max_steps} (the farthest keyframe's)")
+        for idx, key in ((0, anim.keyframes[0]), (374, anim.keyframes[-1])):
+            params = dataclasses.replace(cfg, camera=key.camera).params(dev)
+            img, stats = render(params, static, grid32, with_stats=True)
+            img = bloom(img, params.bloom_strength, static.bloom_divider)
+            want = encode_rgb8(img).cpu().numpy()
+            got = read_png(pngs[idx])
+            d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+            print(f"  frame {idx} vs a direct render at keyframe {idx and 1}'s camera: max |d| "
+                  f"{int(d.max())} on the uint8 scale, {int((d > 0).sum())} values differ; "
+                  f"truncated share {float(stats.truncated_frac):.6g}, escaped "
+                  f"{float(stats.escaped_frac):.4f}")
+            if d.max() > 1:
+                raise AssertionError(f"frame {idx} differs from the direct render by {d.max()}")
+        del img
+    finally:
+        shutil.rmtree(ani_dir, ignore_errors=True)
+    ani = bench_animation.main(["--sizes", "full"])["sizes"]["full"]
+    waits = ani["host_wait_ms"]
+    print(f"  animation, 375 frames at 1920x1080 supersampled: {ani['fps_write']:.3f} frames/s "
+          f"with the PNG writes, {ani['fps_drop']:.3f} dropped after their copy (bound by "
+          f"{ani['bound_by']}); device busy {ani['busy_ms']:.3f} ms a frame of "
+          f"{ani['wall_ms']:.3f}, device idle share {ani['idle_share']:.4f}; the host blocked "
+          f"{waits['cudaStreamSynchronize']:.3f} ms a frame in B1's scalar read and "
+          f"{waits['cudaEventSynchronize']:.3f} ms waiting for copies; peak allocated "
+          f"{ani['peak_mib']:.0f} MiB ({ani['base_mib']:.0f} before the run)  [{card}]")
+    torch.cuda.empty_cache()
+    return ani_launches
+
+
+def _scenes_phase(dev, grid32, card):
+    """Phase 15 (module docstring); returns B1's and B3's launches in the
+    batch render of ``scenes/``."""
+    from blackstar_tpu_torch import geodesic
+    from blackstar_tpu_torch.camera import generate_ray_components
+    from blackstar_tpu_torch.cli import render as cli_render
+    from blackstar_tpu_torch.config import load_config
+    from blackstar_tpu_torch.geodesic import ESCAPED
+    from blackstar_tpu_torch.imageio import encode_rgb8, read_png
+    from blackstar_tpu_torch.ops import march_cuda as b1
+    from blackstar_tpu_torch.render import render_rgb, safe_distance
+    from blackstar_tpu_torch.stars import lookup_cuda as b3
+    from blackstar_tpu_torch.stars.grid import StarGrid
+    from tests.test_torch_scenes_golden import SCENES
+
+    _banner("15. all nine scenes: float64 through B1 and B3 vs the oracle; the render CLI "
+            "on scenes/ at full size; each scene's full-size rays through B1's and B3's "
+            "float32 gates")
+    for name, width, err, lit in _oracle_scenes(dev):
+        print(f"  {name} at {width} px, float64: max |d| {err:.3g} vs the oracle (limit 1e-7)"
+              + (f", {lit} pixels lit by stars" if width == 16 else ", no stars"))
+    scenes_dir = os.path.join(ROOT, "scenes")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_scenes")  # gitignored
+    try:
+        b1.march_cuda.launches = b3.star_lookup_cuda.launches = 0
+        geodesic.march.calls = StarGrid.lookup.calls = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_render.main([scenes_dir, "-o", out_dir, "-f", "--stats"])
+        batch_s = time.perf_counter() - t0
+        scene_launches = {"b1": b1.march_cuda.launches, "b3": b3.star_lookup_cuda.launches}
+        scene_plain = {"march": geodesic.march.calls, "lookup": StarGrid.lookup.calls}
+        text = log.getvalue()
+        print(f"  render CLI on scenes/ with -f: {batch_s:.1f} s (cold), rc {rc}, kernel "
+              f"launches {scene_launches}, plain calls {scene_plain}")
+        if rc != 0:
+            raise AssertionError(f"render CLI returned {rc}")
+        if scene_launches != {"b1": 9, "b3": 9} or max(scene_plain.values()) != 0:
+            raise AssertionError("the scenes did not go through B1 and B3 alone, once a scene")
+        truncated = [float(v) for v in re.findall(r"truncated=(\S+)", text)]
+        pngs = sorted(glob.glob(os.path.join(out_dir, "*.png")))
+        if len(pngs) != 9 or len(truncated) != 9:
+            raise AssertionError(f"expected 9 PNGs and 9 stats lines: {pngs}, {truncated}")
+        for path, trunc in zip(SCENES, truncated):
+            name = os.path.basename(path)[:-5]
+            cfg = load_config(path)
+            rgb8 = read_png(os.path.join(out_dir, name + ".png"))
+            w, h = cfg.scene.resolution
+            if rgb8.shape != (h, w, 3) or rgb8.max() == 0:
+                raise AssertionError(f"{name}.png is {rgb8.shape}, max {rgb8.max()}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for path, trunc in zip(SCENES, truncated):
+        cfg = load_config(path)
+        params, static = cfg.params(dev), cfg.static()
+        dt = static.tdtype
+        rw, rh = static.render_width, static.render_height
+        wall_ms = _host_ms(lambda: encode_rgb8(render_rgb(params, static, grid32)).cpu(), 3)
+        pos0, planes = generate_ray_components(params.camera, rw, rh, dtype=dt)
+        safe = safe_distance(params, dt)
+        ker = b1.march_cuda(pos0, planes, params, static, safe)
+        ref = geodesic.march(pos0, torch.stack(planes, dim=-1), params, static, safe)
+        cfg64 = dataclasses.replace(cfg, scene=dataclasses.replace(cfg.scene, dtype="float64"))
+        params64 = cfg64.params(dev)
+        ref64 = geodesic.march(pos0.double(), torch.stack(planes, dim=-1).double(), params64,
+                               cfg64.static(), safe_distance(params64, torch.float64))
+        torch.cuda.synchronize()
+        print(f"  {os.path.basename(path)}: {cfg.scene.resolution[0]}x{cfg.scene.resolution[1]}"
+              f"{' supersampled' if static.supersampling else ''}, {rw * rh} rays"
+              f"{'' if rw % 8 == 0 and rh % 4 == 0 else ' (not whole 8x4 tiles)'}, step cap "
+              f"{static.max_steps}; truncated share {trunc:.6g} (CLI); frame wall "
+              f"{wall_ms:.3f} ms (render + bloom + uint8 copy, warm)  [{card}]")
+        _check_march(ker, ref, "float32", ref64)
+        del ref, ref64
+        escaped = ker.status == ESCAPED
+        inten, sat = params.stars.intensity, params.stars.saturation
+        s_ker = b3.star_lookup_cuda(grid32, ker.vel, inten, sat, escaped, width=rw)
+        s_ref = grid32.lookup(ker.vel, inten, sat, escaped)
+        torch.cuda.synchronize()
+        _check_stars(s_ker, s_ref, "float32", f", {int(escaped.sum())} escaped rays")
+        del ker, s_ker, s_ref
+        torch.cuda.empty_cache()
+    return scene_launches
+
+
+def _star_build_phase(grid_path):
+    """Phase 16 (module docstring): the generated grid equals the loaded one."""
+    from blackstar_tpu_torch.cli import generate_grid as cli_generate_grid
+
+    _banner("16. star build side: generate-grid stars.ppm at the production defaults")
+
+    gen_path = os.path.join(ROOT, "build", "chip_smoke_grid.npz")  # gitignored
+    try:
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli_generate_grid.main(["stars.ppm", gen_path, "-f"])
+        print("  | " + log.getvalue().strip().replace("\n", "\n  | "))
+        print(f"  generate-grid {time.perf_counter() - t0:.1f} s, rc {rc}")
+        if rc != 0:
+            raise AssertionError(f"generate-grid returned {rc}")
+        with np.load(gen_path) as got, np.load(grid_path) as want:
+            if sorted(got.files) != sorted(want.files):
+                raise AssertionError(f"fields differ: {got.files} vs {want.files}")
+            for key in want.files:
+                if got[key].dtype != want[key].dtype or not np.array_equal(got[key], want[key]):
+                    raise AssertionError(f"{key} differs from {grid_path}'s")
+            print(f"  {len(want.files)} arrays equal to those of "
+                  f"{os.path.relpath(grid_path, ROOT)} "
+                  f"(the grid phase 4 loaded): {int(want['n_stars'])} stars, "
+                  f"{want['counts'].size} cells, {want['star_ids'].size} slots")
+    finally:
+        if os.path.exists(gen_path):
+            os.unlink(gen_path)
 
 
 def main():
@@ -1181,8 +1485,17 @@ def main():
             "kernel_ms": kms, "plain_ms": largest["plain_ms"], "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": largest["library_ms"]})
 
-    # ---- 14. B2's float32 gate at the training shape ---------------------
-    _banner("14. B2 march adjoint kernel vs plain adjoints at the 1920x1080 float32 training "
+    # ---- 14. the animation through its CLI -------------------------------
+    ani_launches = _animation_phase(dev, grid32, card)
+
+    # ---- 15. all nine scenes ---------------------------------------------
+    scene_launches = _scenes_phase(dev, grid32, card)
+
+    # ---- 16. the star build side -----------------------------------------
+    _star_build_phase(grid_path)
+
+    # ---- 17. B2's float32 gate at the training shape ---------------------
+    _banner("17. B2 march adjoint kernel vs plain adjoints at the 1920x1080 float32 training "
             "shape, 4 sets of seeded random cotangents")
     torch.cuda.empty_cache()
     print("  B2 at the training shape (B1's checkpoints):")
@@ -1194,6 +1507,7 @@ def main():
          "source": "blackstar_tpu_torch/ops/csrc/march.cu",
          "replaces": "blackstar_tpu/ops/march_pallas.py:104",
          "launches": fit_launches["b1"], "launches_render": launches["b1"],
+         "launches_animation": ani_launches["b1"], "launches_scenes": scene_launches["b1"],
          "max_abs_err": b1_err, "plain_max_abs_err": b1_plain_err,
          "ms": b1_ms, "kernel_ms": b1_kernel_ms, "plain_ms": march_ms,
          "ckpt_ms": b1_ckpt_ms, "ckpt_kernel_ms": b1_ckpt_kernel_ms,
@@ -1210,6 +1524,7 @@ def main():
          "source": "blackstar_tpu_torch/stars/csrc/star_lookup.cu",
          "replaces": "blackstar_tpu/stars/grid.py:717",
          "launches": fit_launches["b3"], "launches_render": launches["b3"],
+         "launches_animation": ani_launches["b3"], "launches_scenes": scene_launches["b3"],
          "max_abs_err": b3_err, "ms": b3_ms, "kernel_ms": b3_kernel_ms, "plain_ms": lookup_ms,
          "ptxas": ptxas[b3].get("star_lookup_kernel<float>"),
          "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None},

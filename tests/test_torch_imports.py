@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``blackstar_tpu_torch`` and not
 ``chip_smoke.py`` pulls in JAX, the JAX package or its ``scripts/``; and
-importing it builds no kernel."""
+importing it builds no kernel and no native library."""
 
 import ast
 import glob
@@ -24,6 +24,8 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(name)\n"
         "from blackstar_tpu_torch.ops import _build\n"
         "assert not _build._loaded, 'a kernel library was loaded at import'\n"
+        "from blackstar_tpu_torch import native\n"
+        "assert native._lib is None and not native._tried, 'the native library was loaded'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'blackstar_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"

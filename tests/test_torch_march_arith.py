@@ -85,6 +85,24 @@ def test_gate_fails_a_less_accurate_march(small):
     assert any(f.startswith("(c)") for f in failed), failed
 
 
+def test_gate_step_count_is_anchored_on_float64(small):
+    """(e): the kernel's executed step count may differ from the plain
+    float32 march's by more than 2 only where it is no farther from the
+    float64 march's than the plain's is (+2)."""
+    _, plain, ref64 = small
+    s = int(plain.steps)
+    assert s == int(ref64.steps)
+    off = plain._replace(steps=torch.tensor(s + 5, dtype=torch.int32))
+    assert [f for f in march_accuracy.march_gate(off, plain, ref64)[2] if f.startswith("(e)")]
+    # The plain float32 march 9 steps past float64 (one ray it classifies
+    # otherwise), the kernel 5: closer to float64, so it passes.
+    far = plain._replace(steps=torch.tensor(s + 9, dtype=torch.int32))
+    assert not [f for f in march_accuracy.march_gate(off, far, ref64)[2] if f.startswith("(e)")]
+    # The kernel 14 steps past float64 against the plain's 9: it fails.
+    worse = plain._replace(steps=torch.tensor(s + 14, dtype=torch.int32))
+    assert [f for f in march_accuracy.march_gate(worse, far, ref64)[2] if f.startswith("(e)")]
+
+
 def test_quantile():
     x = torch.arange(1000, dtype=torch.float64)
     assert march_accuracy.quantile(x) == 998.0
