@@ -41,11 +41,17 @@ def look_at_rotation(position: torch.Tensor, look_at: torch.Tensor, up: torch.Te
     return torch.stack([xa, ya, -za], dim=0)
 
 
-def _setup(cam: CameraParams, width: int, height: int, dtype):
-    dev = cam.position.device
+def _camera_basis(cam: CameraParams, dtype):
+    """The camera position, fov and rotation rows at ``dtype``."""
     pos = cam.position.to(dtype)
     fov = cam.fov.to(dtype)
     rot = look_at_rotation(cam.position, cam.look_at, cam.up).to(dtype)
+    return pos, fov, rot
+
+
+def _setup(cam: CameraParams, width: int, height: int, dtype):
+    dev = cam.position.device
+    pos, fov, rot = _camera_basis(cam, dtype)
     xs = torch.arange(width, dtype=dtype, device=dev)
     ys = torch.arange(height, dtype=dtype, device=dev)
     cx, cy = _film_coords(fov, xs, ys, width, height)
@@ -76,12 +82,37 @@ def generate_ray_components(
     three contiguous flat (H·W,) direction planes — the layout the march
     kernel reads."""
     pos, rot, cx, cy = _setup(cam, width, height, dtype)
-    cx = cx[None, :]  # (1, W)
-    cy = cy[:, None]  # (H, 1)
+    planes = _direction_planes(rot, cx[None, :], cy[:, None])  # (1, W) and (H, 1)
+    n = height * width
+    return pos, tuple(p.reshape(n) for p in planes)
+
+
+def _direction_planes(rot, cx, cy):
+    """Unit ray directions ``(dx, dy, dz)`` of film offsets ``cx``, ``cy``
+    (broadcast against each other), normalised by ``rsqrt`` of the summed
+    squares: one elementwise arithmetic for every caller, so a ray's bits do
+    not depend on which of them made it."""
     xa, ya, nza = rot[0], rot[1], rot[2]
     dx = cx * xa[0] + cy * ya[0] - nza[0]
     dy = cx * xa[1] + cy * ya[1] - nza[1]
     dz = cx * xa[2] + cy * ya[2] - nza[2]
     inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
-    n = height * width
-    return pos, ((dx * inv).reshape(n), (dy * inv).reshape(n), (dz * inv).reshape(n))
+    return dx * inv, dy * inv, dz * inv
+
+
+def generate_rays_at(cam: CameraParams, pixel_ids: torch.Tensor, width: int, height: int,
+                     dtype=torch.float32):
+    """Like :func:`generate_ray_components` for a subset of the pixels:
+    ``(pos, (vx, vy, vz))`` with three (N,) planes for the flat row-major
+    pixel ids ``pixel_ids`` (N,) of a ``width`` × ``height`` frame, on the
+    camera parameters' device. Each ray equals, bit for bit, the one
+    :func:`generate_ray_components` makes for its pixel (the same
+    elementwise arithmetic), so a sharded frame equals the unsharded one.
+    The sharded renderer makes each rank's rays with it from the replicated
+    camera, so no ray crosses between ranks."""
+    pos, fov, rot = _camera_basis(cam, dtype)
+    ids = pixel_ids.to(device=cam.position.device, dtype=torch.int64)
+    xs = (ids % width).to(dtype)
+    ys = (ids // width).to(dtype)
+    cx, cy = _film_coords(fov, xs, ys, width, height)
+    return pos, _direction_planes(rot, cx, cy)

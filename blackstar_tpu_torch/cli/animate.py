@@ -3,7 +3,7 @@
 Usage::
 
     python -m blackstar_tpu_torch animate ANIM.yaml [-o DIR] [--force]
-        [--render [--preview] [--starmap stars.grid.npz] [--device cuda]]
+        [--render [--preview] [--starmap stars.grid.npz] [--device cuda] [--sharded]]
 
 The port of ``blackstar_tpu/cli/animate.py``. Without ``--render`` it
 writes one scene YAML per frame (``<basename>_<paddedIdx>.yaml``) into the
@@ -12,8 +12,11 @@ rendering them is a separate batch ``render`` run, and
 ``scripts/ffmpeg-animate`` muxes the stills into a video. With ``--render``
 it renders the frames straight to PNG (``video.render_animation``) on
 ``--device`` (default ``cuda``: through the march and star kernels; ``cpu``:
-through their plain PyTorch versions). Sharding over several cards is not
-ported.
+through their plain PyTorch versions). With ``--render``, ``--sharded``
+spreads each frame's rays over the ranks of a ``torch.distributed`` group,
+one process per card (``torchrun --nproc-per-node N -m blackstar_tpu_torch
+animate ANIM.yaml --render --sharded``; without ``torchrun``'s environment
+the group is this process alone); only rank 0 prints and writes the PNGs.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "stars.ppm on first use)")
     p.add_argument("--device", default="cuda",
                    help="with --render: torch device to render on (default: cuda)")
+    p.add_argument("--sharded", action="store_true",
+                   help="with --render: shard each frame's rays over the ranks (launch "
+                   "with torchrun)")
     return p
 
 
@@ -70,6 +76,11 @@ def main(argv=None) -> int:
         return 1
 
     if args.render:
+        if args.sharded:
+            from blackstar_tpu_torch.parallel.mesh import sharded_session
+
+            with sharded_session(args.device) as mesh:
+                return _render(args, anim, out_path, basename, mesh)
         return _render(args, anim, out_path, basename)
 
     from blackstar_tpu_torch.config import save_config
@@ -82,14 +93,15 @@ def main(argv=None) -> int:
     return 0
 
 
-def _render(args, anim, out_path: str, basename: str) -> int:
+def _render(args, anim, out_path: str, basename: str, mesh=None) -> int:
     from blackstar_tpu_torch import native
     from blackstar_tpu_torch.cli.render import _load_stars
     from blackstar_tpu_torch.config import torch_dtype
+    from blackstar_tpu_torch.parallel.mesh import rank_zero_first
     from blackstar_tpu_torch.video import (WRITER_THREADS, frame_path, render_animation,
                                            require_device)
 
-    device = require_device(args.device)
+    device = require_device(args.device if mesh is None else mesh.device)
     if not args.force:
         # Frames are written asynchronously, so no per-frame prompt is
         # possible: -f is checked up front instead of overwriting a previous
@@ -101,7 +113,8 @@ def _render(args, anim, out_path: str, basename: str) -> int:
                   f"{existing[0]}) — pass -f/--force to overwrite.")
             return 1
 
-    star_grid = _load_stars(args.starmap, device)
+    with rank_zero_first(mesh):  # one rank builds a missing star grid
+        star_grid = _load_stars(args.starmap, device)
     if star_grid is not None:
         star_grid = star_grid.get(torch_dtype(anim.scene.dtype))
     if native.available():
@@ -111,7 +124,8 @@ def _render(args, anim, out_path: str, basename: str) -> int:
               f"{native.load_error})")
     paths = render_animation(
         anim, out_path, star_grid=star_grid, basename=basename, preview=args.preview,
-        device=device, progress=lambda i, n: print(f"Frame {i}/{n}", end="\r"),
+        device=device, sharded=mesh is not None,
+        progress=lambda i, n: print(f"Frame {i}/{n}", end="\r"),
     )
     print(f"\nRendered {len(paths)} frames to {out_path}.")
     return 0

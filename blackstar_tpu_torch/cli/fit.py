@@ -5,7 +5,7 @@ Usage::
     python -m blackstar_tpu_torch fit SCENE.yaml TARGET.png [-o FITTED.yaml]
         [--steps 200] [--lr 1e-2] [--fit mass,disk] [--pyramid 2]
         [--starmap stars.grid.npz] [--checkpoint ck.npz] [--force]
-        [--device cuda]
+        [--device cuda] [--sharded]
 
 The port of ``blackstar_tpu/cli/fit.py``. It gradient-descends the scene's
 differentiable parameters (camera pose/fov, disk inner/outer/opacity/colour,
@@ -17,7 +17,11 @@ list of substrings matched against dotted leaf paths (``.mass``,
 ``.disk.outer``, ``.camera.position``, …); default all. ``--device``
 (default ``cuda``) picks where the fit runs: on a CUDA device through the
 march and star kernels and their backward kernels, on ``cpu`` through
-their plain PyTorch versions. Sharding over several cards is not ported.
+their plain PyTorch versions. ``--sharded`` spreads each step's rays over
+the ranks of a ``torch.distributed`` group, one process per card, and sums
+the parameter gradients over them (``torchrun --nproc-per-node N -m
+blackstar_tpu_torch fit ... --sharded``; without ``torchrun``'s environment
+the group is this process alone); only rank 0 prints and writes files.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="extra box-blurred loss levels for long-range gradients")
     p.add_argument("--starmap", default="", metavar="PATH",
                    help="star grid (needed if the target has stars)")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard each step's rays over the ranks (launch with torchrun)")
     p.add_argument("--checkpoint", default="", metavar="PATH",
                    help="also save the fitted parameters as .npz")
     p.add_argument("-f", "--force", action="store_true",
@@ -59,8 +65,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = torch.device(args.device)
+    if args.sharded:
+        from blackstar_tpu_torch.parallel.mesh import sharded_session
 
+        with sharded_session(args.device) as mesh:
+            return _main(args, mesh.device, mesh)
+    return _main(args, torch.device(args.device))
+
+
+def _main(args, device: torch.device, mesh=None) -> int:
     from blackstar_tpu_torch.config import config_with_params, load_config, save_config
     from blackstar_tpu_torch.fit import fit_scene, save_params, trainable_mask
     from blackstar_tpu_torch.imageio import read_png, srgb_decode
@@ -107,10 +120,12 @@ def main(argv=None) -> int:
         fitted, losses = fit_scene(
             params, static, target, star_grid,
             steps=args.steps, learning_rate=args.lr,
-            grad_mask=grad_mask, pyramid=args.pyramid, callback=progress,
+            grad_mask=grad_mask, pyramid=args.pyramid, callback=progress, mesh=mesh,
         )
     if losses:
         print(f"loss: {losses[0]:.3e} -> {losses[-1]:.3e}")
+    if mesh is not None and mesh.rank:
+        return 0  # rank 0 writes the files
 
     out = normalize_path(args.output) if args.output else (
         os.path.splitext(scene_path)[0] + "-fitted.yaml"

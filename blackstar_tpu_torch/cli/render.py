@@ -4,7 +4,7 @@ Usage::
 
     python -m blackstar_tpu_torch render SCENE.yaml [-o DIR] [--preview] [--force]
                                          [--starmap stars.grid.npz] [--stats]
-                                         [--resume] [--device cuda]
+                                         [--resume] [--device cuda] [--sharded]
                                          [--profile DIR] [--shard-scenes I/N]
 
 A directory input renders every ``*.yaml`` inside it in sorted order (batch
@@ -19,6 +19,16 @@ caps the long side at 300 px and disables supersampling/bloom
 through the march and star kernels, on ``cpu`` through their plain PyTorch
 versions. The default starmap, missing on a
 fresh checkout, is built from ``stars.ppm`` on first use.
+
+``--sharded`` spreads each frame's rays over the ranks of a
+``torch.distributed`` group, one process per card (``render.render`` with
+a ``parallel`` mesh; NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``)::
+
+    torchrun --nproc-per-node 4 -m blackstar_tpu_torch render SCENE.yaml --sharded
+
+Without ``torchrun``'s environment the group is this process alone. Only
+rank 0 prints and writes the PNGs; ``--stats`` is ignored.
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--starmap", default=DEFAULT_STARMAP, metavar="PATH",
         help=f"path to star grid (default: {DEFAULT_STARMAP})",
     )
+    p.add_argument("--sharded", action="store_true",
+                   help="shard each frame's rays over the ranks (launch with torchrun)")
     p.add_argument("--stats", action="store_true", help="print per-render ray statistics")
     p.add_argument(
         "--resume", action="store_true",
@@ -111,7 +123,7 @@ def _sync(device: torch.device) -> None:
 
 
 def handle_scene(args, star_grid, outdir: str, filename: str, device: torch.device,
-                 writer=None) -> bool:
+                 writer=None, mesh=None) -> bool:
     from blackstar_tpu_torch.config import apply_preview, load_config
     from blackstar_tpu_torch.imageio import encode_rgb8, write_png
     from blackstar_tpu_torch.ops.filters import bloom
@@ -139,14 +151,20 @@ def handle_scene(args, star_grid, outdir: str, filename: str, device: torch.devi
     params, static = cfg.params(device), cfg.static()
     grid = star_grid.get(static.tdtype) if star_grid is not None else None
 
+    with_stats = args.stats
+    if mesh is not None and with_stats:
+        print("Note: --stats is not supported with --sharded; ignoring.")
+        with_stats = False
     print(f"Rendering {scene_name}...")
     with time_action("Rendering"):
-        if args.stats:
+        if with_stats:
             img, stats = render(params, static, grid, with_stats=True)
         else:
-            img = render(params, static, grid)
+            img = render(params, static, grid, mesh=mesh)
         _sync(device)
-    if args.stats:
+    if mesh is not None and mesh.rank:
+        return True  # rank 0 writes the frame
+    if with_stats:
         print(
             f"steps={int(stats.steps)} escaped={float(stats.escaped_frac):.3f} "
             f"horizon={float(stats.horizon_frac):.3f} "
@@ -191,17 +209,19 @@ def _profiler(outdir: str, device: torch.device):
     return profile(activities=activities, on_trace_ready=export)
 
 
-def _make_writer(args):
-    """The native PNG pool for batch mode: needs --force and the library."""
+def _make_writer(args, mesh=None):
+    """The native PNG pool for batch mode: needs --force and the library
+    (and, sharded, rank 0)."""
     from blackstar_tpu_torch import native
     from blackstar_tpu_torch.video import WRITER_THREADS
 
-    if not args.force or not native.available():
+    if not args.force or (mesh is not None and mesh.rank) or not native.available():
         return None
     return native.AsyncFrameWriter(WRITER_THREADS)
 
 
-def _render_batch(args, star_grid, outdir: str, dirname: str, device: torch.device) -> int:
+def _render_batch(args, star_grid, outdir: str, dirname: str, device: torch.device,
+                  mesh=None) -> int:
     print(f"{dirname} is a directory. Rendering all scenes inside it...")
     files = sorted(os.path.join(dirname, f) for f in os.listdir(dirname) if f.endswith(".yaml"))
     if args.shard_scenes:
@@ -215,13 +235,14 @@ def _render_batch(args, star_grid, outdir: str, dirname: str, device: torch.devi
             print(f"invalid --shard-scenes {args.shard_scenes!r} (expected I/N with 0 <= I < N)")
             return 2
         files = files[i::n]
-    writer = _make_writer(args)
+    writer = _make_writer(args, mesh)
     oks = []
     try:
         for idx, scn in enumerate(files, 1):
             clear_screen()
             print(f"Batch mode progress: {idx}/{len(files)}")
-            oks.append(handle_scene(args, star_grid, outdir, scn, device, writer=writer))
+            oks.append(handle_scene(args, star_grid, outdir, scn, device, writer=writer,
+                                    mesh=mesh))
     finally:
         if writer is not None:
             errors = writer.wait()
@@ -238,9 +259,19 @@ def _render_batch(args, star_grid, outdir: str, dirname: str, device: torch.devi
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = torch.device(args.device)
+    if args.sharded:
+        from blackstar_tpu_torch.parallel.mesh import sharded_session
 
-    star_grid = _load_stars(args.starmap, device)
+        with sharded_session(args.device) as mesh:
+            return _main(args, mesh.device, mesh)
+    return _main(args, torch.device(args.device))
+
+
+def _main(args, device: torch.device, mesh=None) -> int:
+    from blackstar_tpu_torch.parallel.mesh import rank_zero_first
+
+    with rank_zero_first(mesh):  # one rank builds a missing star grid
+        star_grid = _load_stars(args.starmap, device)
 
     outdir = normalize_path(args.output) if args.output else os.getcwd()
     os.makedirs(outdir, exist_ok=True)
@@ -248,10 +279,10 @@ def main(argv=None) -> int:
     filename = normalize_path(args.inputfile)
     with _profiler(args.profile, device) if args.profile else contextlib.nullcontext():
         if os.path.isdir(filename):
-            rc = _render_batch(args, star_grid, outdir, filename, device)
+            rc = _render_batch(args, star_grid, outdir, filename, device, mesh)
             if rc:
                 return rc
-        elif not handle_scene(args, star_grid, outdir, filename, device):
+        elif not handle_scene(args, star_grid, outdir, filename, device, mesh=mesh):
             return 1
     print("Everything done. Thank you!")
     return 0

@@ -10,6 +10,13 @@ PyTorch versions.
 Adam is ``torch.optim.Adam`` with optax ``adam``'s defaults (b1 0.9, b2
 0.999, eps 1e-8). A leaf that the mask freezes gets a zero gradient, and
 Adam then moves it by exactly zero, as optax's does.
+
+With a ``mesh`` (``parallel.make_mesh``) the render is sharded over the
+ranks (``render.render`` with ``mesh``): every rank holds the whole image and
+the same loss, its backward yields its rays' share of each parameter
+gradient, and one all-reduce sums the shares (what the JAX package's
+``shard_map`` transpose does with its psum), so every rank's Adam takes
+the same step.
 """
 
 from __future__ import annotations
@@ -35,16 +42,17 @@ class TrainState(NamedTuple):
 
 
 def image_loss(params: SceneParams, static: StaticConfig, target, star_grid=None, *,
-               pyramid: int = 0) -> torch.Tensor:
+               mesh=None, pyramid: int = 0) -> torch.Tensor:
     """Mean-squared error between the rendered linear-RGB image (rendered
-    through the differentiable path) and a target.
+    through the differentiable path; with a ``mesh``, sharded over its
+    ranks) and a target.
 
     ``pyramid > 0`` adds box-blurred comparison levels (radii 4, 8, 16, …)
     that give long-range gradients where rendered and target structures
     barely overlap. ``target`` may be the tuple of precomputed levels that
     :func:`target_pyramid` returns.
     """
-    img = render(params, static, star_grid, differentiable=True)
+    img = render(params, static, star_grid, mesh=mesh, differentiable=True)
     levels = None
     if isinstance(target, (tuple, list)):
         levels = list(target)
@@ -83,17 +91,32 @@ def init_train_state(params: SceneParams, learning_rate: float = 1e-2) -> TrainS
     return TrainState(params=params_from_leaves(leaves), optimizer=opt, step=0)
 
 
-def make_train_step(static: StaticConfig, star_grid=None, *,
+def allreduce_grads(params: SceneParams, mesh) -> None:
+    """Sum the leaves' gradients over the ranks of ``mesh`` in place: the
+    leaves that have one, flattened into one buffer, one all-reduce."""
+    leaves = [v for _, v in param_leaves(params) if v.grad is not None]
+    if not leaves:
+        return
+    buf = torch.cat([v.grad.reshape(-1) for v in leaves])
+    torch.distributed.all_reduce(buf)
+    for v, g in zip(leaves, buf.split([v.numel() for v in leaves])):
+        v.grad.copy_(g.view_as(v.grad))
+
+
+def make_train_step(static: StaticConfig, star_grid=None, *, mesh=None,
                     grad_mask: Optional[SceneParams] = None, pyramid: int = 0):
     """A ``(state, target[, star_grid]) -> (state, loss)`` update step: the
-    loss and its gradients w.r.t. every leaf, the mask, one Adam step. The
-    loss comes back as a 0-d tensor on the device (no host sync)."""
+    loss and its gradients w.r.t. every leaf (with a ``mesh``, sharded and
+    summed over its ranks), the mask, one Adam step. The loss comes back as
+    a 0-d tensor on the device (no host sync)."""
     masks = None if grad_mask is None else [m for _, m in param_leaves(grad_mask)]
 
     def train_step(state: TrainState, target, grid=star_grid):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = image_loss(state.params, static, target, grid, pyramid=pyramid)
+        loss = image_loss(state.params, static, target, grid, mesh=mesh, pyramid=pyramid)
         loss.backward()
+        if mesh is not None:
+            allreduce_grads(state.params, mesh)
         if masks is not None:
             for (_, leaf), m in zip(param_leaves(state.params), masks):
                 if leaf.grad is not None:
@@ -105,19 +128,20 @@ def make_train_step(static: StaticConfig, star_grid=None, *,
 
 
 def fit_scene(params: SceneParams, static: StaticConfig, target, star_grid=None, *,
-              steps: int = 100, learning_rate: float = 1e-2, callback=None,
+              steps: int = 100, learning_rate: float = 1e-2, callback=None, mesh=None,
               grad_mask: Optional[SceneParams] = None, pyramid: int = 0):
     """Gradient-descend the scene parameters toward a target image.
 
     Returns ``(params, losses)``. ``grad_mask`` (see :func:`trainable_mask`)
-    restricts which leaves move; ``pyramid`` adds multi-scale loss levels.
+    restricts which leaves move; ``pyramid`` adds multi-scale loss levels;
+    ``mesh`` shards each step over its ranks (:func:`make_train_step`).
     The losses stay on the device during the loop and are fetched once at
     the end; ``callback(i, state, loss)`` receives the device loss.
     """
     state = init_train_state(params, learning_rate)
     if pyramid and not isinstance(target, (tuple, list)):
         target = target_pyramid(target, pyramid)
-    step_fn = make_train_step(static, grad_mask=grad_mask, pyramid=pyramid)
+    step_fn = make_train_step(static, mesh=mesh, grad_mask=grad_mask, pyramid=pyramid)
     losses = []
     for i in range(steps):
         state, loss = step_fn(state, target, star_grid)

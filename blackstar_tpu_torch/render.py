@@ -27,12 +27,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from blackstar_tpu_torch.camera import generate_ray_components
+from blackstar_tpu_torch.camera import generate_ray_components, generate_rays_at
 from blackstar_tpu_torch.config import Config, SceneParams, StaticConfig, apply_preview
 from blackstar_tpu_torch.geodesic import ACTIVE, ESCAPED, HORIZON, MarchResult
 from blackstar_tpu_torch.ops.filters import bloom, supersample
 from blackstar_tpu_torch.ops.march_cuda import march_cuda
 from blackstar_tpu_torch.ops.march_diff import march_diff
+from blackstar_tpu_torch.parallel.render import GatherShards, shard_pixels
 from blackstar_tpu_torch.stars.diff import lookup_diff
 from blackstar_tpu_torch.stars.lookup_cuda import star_lookup_cuda
 
@@ -98,16 +99,25 @@ def run_march(pos0, vel0, params: SceneParams, static: StaticConfig, *,
     return march(pos0, vel0, params, static, safe)
 
 
-def render(params: SceneParams, static: StaticConfig, star_grid=None, *,
+def render(params: SceneParams, static: StaticConfig, star_grid=None, *, mesh=None,
            differentiable: bool = False, with_stats: bool = False):
     """Render the linear-RGB image (H, W, 3) on the parameters' device —
     before bloom, like ``Raytracer.render``. ``differentiable`` takes the
-    training path (module docstring)."""
+    training path (module docstring). With a ``mesh`` (``parallel.
+    make_mesh``) this rank renders its shard of the rays and every rank
+    returns the whole image (``parallel.render``: the deal and the gather);
+    the statistics are then not available."""
     dt = static.tdtype
     rw, rh = static.render_width, static.render_height
-    pos0, vel0 = generate_ray_components(params.camera, rw, rh, dtype=dt)
+    if mesh is None:
+        pos0, vel0 = generate_ray_components(params.camera, rw, rh, dtype=dt)
+    elif with_stats:
+        raise ValueError("render: with_stats is not available with a mesh")
+    else:
+        pos0, vel0 = generate_rays_at(params.camera, shard_pixels(rh, rw, mesh), rw, rh, dtype=dt)
     res = run_march(pos0, vel0, params, static, differentiable=differentiable)
-    img = shade(res, params, star_grid, dt, differentiable, width=rw).reshape(rh, rw, 3)
+    rgb = shade(res, params, star_grid, dt, differentiable, width=rw)
+    img = rgb.reshape(rh, rw, 3) if mesh is None else GatherShards.apply(rgb, mesh, rh, rw)
     if static.supersampling:
         img = supersample(img)
     if with_stats:

@@ -4,8 +4,8 @@ fit, three backward passes.
 ``scenes/default.yaml`` at 1920×1080 with the 470k-star sky, every
 parameter leaf trainable, fitted for N Adam steps (learning rate 1e-3 by
 default) from the scene's own parameters toward a target rendered in
-float64 with ``diskOuter`` 12.5 (before bloom), three times from the same
-start:
+float64 with ``diskOuter`` 12.5 (before bloom; ``--target FIELD=VALUE``
+sets other ``Scene`` fields instead), three times from the same start:
 
 * ``b2_f32``: the training path in float32 (B1 forward, B2 backward);
 * ``b2_f64``: the training path in float64 (the scene, the star tables and
@@ -17,7 +17,8 @@ start:
 
 Run on a CUDA card from the checkout's root::
 
-    python -m blackstar_tpu_torch.scripts.fit_partials [--steps 10]
+    python -m blackstar_tpu_torch.scripts.fit_partials [--steps 10] [--lr 1e-3]
+        [--target disk_outer=12.5 [--target mass=1.02 ...]]
 
 It prints each run's losses, then for each float32 run and each leaf: the
 relative error of the first step's gradient (all three runs start from the
@@ -108,7 +109,12 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10, help="Adam steps (default 10)")
     ap.add_argument("--lr", type=float, default=1e-3, help="Adam learning rate (default 1e-3)")
+    ap.add_argument("--target", action="append", default=[], metavar="FIELD=VALUE",
+                    help="a Scene field of the target render (repeatable; default "
+                    "disk_outer=12.5)")
     args = ap.parse_args(argv)
+    target_fields = dict(t.split("=", 1) for t in args.target) or {"disk_outer": "12.5"}
+    target_fields = {k: float(v) for k, v in target_fields.items()}
     if not torch.cuda.is_available():
         raise SystemExit("fit_partials: needs a CUDA card")
 
@@ -134,11 +140,12 @@ def main(argv=None) -> dict:
         raise SystemExit("fit_partials: stars.ppm is missing")
     compact = load_star_grid_compact(grid_path)
     grids = {dt: compact.to_grid(dev, dtype=dt) for dt in (torch.float32, torch.float64)}
-    cfg_t = scene("float64", disk_outer=12.5)
+    cfg_t = scene("float64", **target_fields)
     with torch.no_grad():
         target = render(cfg_t.params(dev), cfg_t.static(), grids[torch.float64])
 
     print(card)
+    print(f"target: the scene with {target_fields}, lr {args.lr}, {args.steps} steps")
     runs = {}
     for name in ("b2_f64", "b2_f32", "plain_f32"):
         cfg = scene("float64" if name.endswith("f64") else "float32")
@@ -167,7 +174,8 @@ def main(argv=None) -> dict:
     print(f"b2_f32 parts from b2_f64 by more than plain_f32 on {len(worse) - ('all' in worse)} of "
           f"{len(dist['b2_f32']) - 1} leaves" + (", and in all" if "all" in worse else
                                                    ", not in all"))
-    result = {"card": card, "steps": args.steps, "lr": args.lr, "grad_error": gerr,
+    result = {"card": card, "steps": args.steps, "lr": args.lr, "target": target_fields,
+              "grad_error": gerr,
               "losses": {k: v["losses"] for k, v in runs.items()},
               "final": {k: {leaf: v["path"][-1][leaf].tolist() for leaf in v["path"][-1]}
                         for k, v in runs.items()},

@@ -16,6 +16,11 @@ copy is queued (``non_blocking``) with an event behind it, frame k+1 is
 queued, and only then is frame k handed on, after its event has completed.
 The writer copies a frame at submit, so its buffer is free again for frame
 k+2. Each frame renders on its own, so the last frames need no padding.
+
+``sharded=True`` renders each frame sharded over the ranks of the default
+``torch.distributed`` group (``render.render`` with a mesh, one process per
+card, each on ``cuda:LOCAL_RANK``): every rank renders its shard of every
+frame, and rank 0 alone blooms, encodes, copies and writes the frames.
 """
 
 from __future__ import annotations
@@ -62,19 +67,27 @@ def animation_config(anim: Animation, preview: bool = False) -> Config:
 
 
 def frames(anim: Animation, *, star_grid=None, preview: bool = False,
-           device="cuda") -> Iterator[Tuple[int, np.ndarray]]:
+           device="cuda", sharded: bool = False) -> Iterator[Tuple[int, np.ndarray]]:
     """Render the animation's frames in order on ``device``; yields
     ``(index, rgb8)`` with ``rgb8`` an (H, W, 3) uint8 host array.
 
     ``rgb8`` is a view of one of the two host buffers and is overwritten two
     frames later: use or copy it before asking for the next frame.
-    ``star_grid`` must be on ``device`` at the scene's dtype.
+    ``star_grid`` must be on ``device`` at the scene's dtype. With
+    ``sharded`` (module docstring) ``device`` is this rank's
+    (``parallel.mesh.rank_device``), and only rank 0 yields frames.
     """
     from blackstar_tpu_torch.imageio import encode_rgb8
     from blackstar_tpu_torch.ops.filters import bloom
     from blackstar_tpu_torch.render import render
 
     device = require_device(device)
+    mesh = None
+    if sharded:
+        from blackstar_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device)
+        device = mesh.device
     cfg = animation_config(anim, preview)
     base = cfg.params(device)
     static = cfg.static()
@@ -92,7 +105,9 @@ def frames(anim: Animation, *, star_grid=None, preview: bool = False,
     pending = []  # (index, buffer, copy event or None), oldest first
     for i in range(n):
         cam = CameraParams(cams.position[i], cams.look_at[i], cams.up[i], cams.fov[i])
-        img = render(dataclasses.replace(base, camera=cam), static, star_grid)
+        img = render(dataclasses.replace(base, camera=cam), static, star_grid, mesh=mesh)
+        if mesh is not None and mesh.rank:
+            continue  # rank 0 encodes and hands on the frames
         if with_bloom:
             img = bloom(img, strength, static.bloom_divider)
         buf = bufs[i % 2]
@@ -128,6 +143,7 @@ def render_animation(
     basename: str = "frame",
     preview: bool = False,
     device="cuda",
+    sharded: bool = False,
     writer_threads: int = WRITER_THREADS,
     progress: Optional[Callable[[int, int], None]] = None,
 ) -> List[str]:
@@ -137,7 +153,8 @@ def render_animation(
     Frames go to the native writer pool (``writer_threads`` threads) when
     the library is available, else they are written one by one by
     ``imageio.write_png``. Raises if a frame failed to write, and if
-    ``device`` is a CUDA device and none is present.
+    ``device`` is a CUDA device and none is present. With ``sharded``
+    (:func:`frames`) only rank 0 writes; the other ranks return ``[]``.
     """
     from blackstar_tpu_torch import native
     from blackstar_tpu_torch.imageio import write_png
@@ -145,10 +162,13 @@ def render_animation(
     device = require_device(device)
     os.makedirs(out_dir, exist_ok=True)
     n = anim.n_frames
-    writer = native.AsyncFrameWriter(writer_threads) if native.available() else None
+    writer = None
+    if not (sharded and torch.distributed.get_rank()) and native.available():
+        writer = native.AsyncFrameWriter(writer_threads)
     paths = []
     try:
-        for i, rgb8 in frames(anim, star_grid=star_grid, preview=preview, device=device):
+        for i, rgb8 in frames(anim, star_grid=star_grid, preview=preview, device=device,
+                              sharded=sharded):
             path = frame_path(out_dir, basename, n, i)
             if writer is not None:
                 writer.submit(path, rgb8)

@@ -33,7 +33,9 @@ phase exits non-zero):
    phase 3's float32 gate), the
    share of useful lanes in B1's warps from its per-ray step counts, the
    distinct table rows a warp load of B3 touches under several layouts
-   (``scripts/star_rows.py``), and B3's wrapper run under
+   (``scripts/star_rows.py``), B3's kernel time on the frame and on the
+   band shard phase 17's deal gives rank 0 of two (with and without the
+   width hint), and B3's wrapper run under
    ``torch.cuda.set_sync_debug_mode("error")`` (it must not wait for the
    card);
 6. a float64 64×36 render through the kernels against the committed
@@ -66,7 +68,7 @@ phase exits non-zero):
    checkpointing variant held to the plain checkpointing march (phase 7's
    float32 gate) and timed against the frame variant in turns, with B1's
    registers and stack; B2 (kernel, wrapper, plain version, with its
-   registers, stack and shared memory; held in phase 14) and B4 (the same,
+   registers, stack and shared memory; held in phase 18) and B4 (the same,
    held to its plain version there, its wrapper run under the sync-debug
    mode as B3's);
 11. the windowed star stage's kernels K1 and K2 against their plain
@@ -111,7 +113,27 @@ phase exits non-zero):
 16. the star build side: ``python -m blackstar_tpu_torch generate-grid
    stars.ppm`` at the production defaults, its ``.npz`` arrays equal to
    those of the grid phase 4 loaded;
-17. B2 at the 1920×1080 training shape held as in phase 7, over 4 sets of
+17. the sharded slice (``blackstar_tpu_torch.parallel``): (a) ``torchrun
+   --nproc-per-node 1 -m blackstar_tpu_torch render scenes/default.yaml
+   --sharded`` on one NCCL rank, its PNG equal byte for byte to phase 5's,
+   B1 and B3 launched with no plain call; (b) two ranks on the one card
+   over gloo (NCCL refuses two ranks on one device), through
+   ``scripts/multihost_check.py``: the sharded 1920×1080 and 481×271
+   (ragged) float32 frames equal to the unsharded frames bit for bit, the
+   sharded training step's gradient leaf by leaf within rtol 1e-9 of the
+   unsharded one in float64 at 480×270 and, in float32 at 1920×1080, no
+   farther from the unsharded float32 gradient than that is from the
+   unsharded float64 one, its two losses within the float32 loss gap (the
+   unsharded float32 step's first loss against float64's) of the unsharded
+   ones, and the gather's backward; then ``fit --sharded`` on one NCCL rank
+   as phase 9 runs it: on one rank every stage and the all-reduce are
+   those of phase 9, so its printed losses must equal phase 9's and its
+   fitted YAML phase 9's byte for byte; (c) warm frame times: sharded on
+   one NCCL rank against unsharded, in turns (the cost of the deal, the
+   gather and ``generate_rays_at``), and on the two gloo ranks (one card
+   gives no scaling figure); B3's kernel time on a band shard is taken in
+   phase 5, where torch.profiler still sees it;
+18. B2 at the 1920×1080 training shape held as in phase 7, over 4 sets of
    cotangents: last, because the plain adjoints' millions of launches
    before a profile left torch.profiler blind to B2.
 
@@ -130,7 +152,9 @@ float32 version's beside it);
 render CLI's run of phase 5; B1's and B3's ``launches_animation`` and
 ``launches_scenes``: in the animate CLI's run of phase 14 and the batch
 render of phase 15; K1, K2 and the probe kernels: in their entry points'
-runs); ``bound_ms`` the least time the card could take for the same work on
+runs; B1-B4's ``launches_sharded``: in ``fit --sharded``'s run of phase 17,
+and B1's and B3's ``launches_sharded_render`` in its render CLI's run);
+``bound_ms`` the least time the card could take for the same work on
 this run's data (the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s, float32 without tensor cores).
 """
@@ -225,6 +249,35 @@ def _kernel_ms(fn, kernel_name, reps):
     if kept != reps:
         print(f"  (the profiler kept {kept} of {reps} launches of {kernel_name})")
     return sum(ms for ms, _ in hits) * reps / kept
+
+
+def _kernel_ms_turns(fns, kernel_name, reps):
+    """:func:`_kernel_ms` for several calls that each launch the same kernel
+    once, in one torch.profiler session (each session taken makes later
+    ones drop more events): the calls run in turns, ``reps`` rounds, and
+    the kernel's launches, in the order the card ran them, are dealt back
+    to the calls. Taken again, up to three times, until the profile keeps
+    every launch; returns per call name its device milliseconds a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    want = reps * len(fns)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and kernel_name in e.name),
+                    key=lambda e: e.time_range.start)
+        if len(ev) == want:
+            return {name: sum(e.time_range.elapsed_us() for e in ev[i::len(fns)]) / 1e3 / reps
+                    for i, name in enumerate(fns)}
+    raise AssertionError(f"the profiler kept {len(ev)} of {want} launches of {kernel_name}")
 
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes per
@@ -769,7 +822,196 @@ def _star_build_phase(grid_path):
             os.unlink(gen_path)
 
 
+def _torchrun(args, timeout=600):
+    """``torchrun --standalone --nproc-per-node 1 chip_smoke.py _cli ARGS``:
+    the port's CLI (``python -m blackstar_tpu_torch ARGS``) on one rank
+    under torchrun's environment, with its kernel counts on the last line.
+    Returns (stdout, those counts)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", os.path.abspath(__file__), "_cli", *args]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} returned {out.returncode}:\n{out.stdout[-4000:]}"
+                             f"\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    return "\n".join(lines[:-1]), json.loads(lines[-1])
+
+
+def _cli_under_torchrun(argv):
+    """``chip_smoke.py _cli ARGS`` (what :func:`_torchrun` launches): run
+    the CLI, then print its kernel counts as JSON."""
+    from blackstar_tpu_torch.__main__ import main as cli_main
+    from blackstar_tpu_torch.scripts.multihost_check import counters
+
+    rc = cli_main(argv)
+    if rc:
+        sys.exit(rc)
+    print(json.dumps(counters()))
+
+
+def _loss_lines(text):
+    """The fit CLI's printed loss lines (each step's and the summary)."""
+    return [line.strip() for line in text.splitlines()
+            if re.match(r"\s*(step\s+\d+/\d+\s+loss |loss: )", line)]
+
+
+def _sharded_phase(dev, grid32, grid_path, card, png5, fit9, target_img):
+    """Phase 17 (module docstring); returns the kernel counts of the
+    ``fit --sharded`` and ``render --sharded`` runs."""
+    from blackstar_tpu_torch.imageio import encode_rgb8, write_png
+    from blackstar_tpu_torch.parallel import initialize_distributed, make_mesh, render_sharded
+    from blackstar_tpu_torch.render import render
+    from blackstar_tpu_torch.scripts import multihost_check
+    import yaml
+
+    _banner("17. sharded slice: render and fit --sharded under torchrun (1 NCCL rank), 2 gloo "
+            "ranks on the one card, sharded frame times")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "chip_smoke_sharded")  # gitignored
+    os.makedirs(work, exist_ok=True)
+    try:
+        # (a) the render CLI on one NCCL rank: phase 5's PNG, byte for byte.
+        t0 = time.perf_counter()
+        text, render_counts = _torchrun([
+            "render", os.path.join("scenes", "default.yaml"), "-o", work, "--force",
+            "--sharded"])
+        print("  | " + text.strip().replace("\n", "\n  | "))
+        with open(os.path.join(work, "default.png"), "rb") as f:
+            same = f.read() == png5
+        print(f"  (a) torchrun render --sharded, 1 rank (nccl): {time.perf_counter() - t0:.1f} s "
+              f"(cold), kernel counts {render_counts}; PNG equal to phase 5's byte for byte: "
+              f"{same}")
+        if not same:
+            raise AssertionError("the sharded render CLI's PNG differs from phase 5's")
+        if min(render_counts["b1"], render_counts["b3"]) < 1 or render_counts["plain"]:
+            raise AssertionError("the sharded render did not go through B1 and B3 alone")
+
+        # (b) two gloo ranks on cuda:0 through multihost_check.
+        with open(os.path.join(ROOT, "scenes", "default.yaml")) as f:
+            base = yaml.safe_load(f)
+
+        def case(name, w, h, dtype, **extra):
+            cfg = {"camera": base["camera"], "scene": dict(base["scene"], resolution=[w, h],
+                                                           dtype=dtype)}
+            return {"name": name, "config": cfg, "starmap": grid_path, **extra}
+
+        target = {"disk_outer": 12.5}
+        spec = {"cases": [
+            case("frame 1920x1080 f32", 1920, 1080, "float32", time_reps=5),
+            case("frame 481x271 f32", 481, 271, "float32"),
+            case("training step 480x270 f64", 480, 270, "float64", grad=True, target=target),
+            case("training step 1920x1080 f32", 1920, 1080, "float32", grad=True,
+                 target=target, ref64=True)]}
+        out = os.path.join(work, "ranks2.pt")
+        t0 = time.perf_counter()
+        rc = multihost_check.launch(spec, 2, "cuda:0", "gloo", 600, out)
+        if rc:
+            raise AssertionError(f"the 2-rank gloo run exited with {rc}")
+        res = torch.load(out)
+        print(f"  (b) 2 ranks on cuda:0 ({res['backend']}): {time.perf_counter() - t0:.1f} s; "
+              f"gather backward per rank {res['gather_backward_ok']}")
+        if res["gather_backward_ok"] != [True, True]:
+            raise AssertionError("the gather's backward is not the image gradient's rows")
+        for name, r in res["cases"].items():
+            equal = torch.equal(r["img"], r["ref"])
+            print(f"    {name}: sharded == unsharded bit for bit: {equal}; per-rank counts "
+                  f"{r['counts']}")
+            if name.startswith("frame") and not equal:
+                d = (r["img"] - r["ref"]).abs()
+                raise AssertionError(f"{name}: the sharded frame differs from the unsharded one "
+                                     f"on {int((d > 0).sum())} values (max {d.max().item():.3g})")
+            keys = ("b1", "b2", "b3", "b4") if "train" in r else ("b1", "b3")
+            if any(min(c[k] for k in keys) < 1 or c["plain"] for c in r["counts"]):
+                raise AssertionError(f"{name}: a rank did not go through {keys} alone")
+        r = res["cases"]["training step 480x270 f64"]
+        for leaf, g in r["train"]["grads"].items():
+            over, ratio, err = _rtol_excess(g, r["ref_train"]["grads"][leaf], 1e-9, 1e-12)
+            if over:
+                raise AssertionError(f"f64 sharded gradient {leaf}: {over} elements outside rtol "
+                                     f"1e-9 (worst {ratio:.3g} x its limit)")
+        print("    f64 480x270: every leaf's sharded gradient within rtol 1e-9 of the "
+              "unsharded one")
+        r = res["cases"]["training step 1920x1080 f32"]
+        g32, g64 = r["ref_train"]["grads"], r["ref64_train"]["grads"]
+        print("    f32 1920x1080, per leaf: max |sharded - unsharded| / max |unsharded f32 - "
+              "unsharded f64|:")
+        for leaf, g in r["train"]["grads"].items():
+            deal = (g - g32[leaf]).abs().max().item()
+            f32 = (g32[leaf].double() - g64[leaf]).abs().max().item()
+            print(f"      {leaf:>18}: {deal:.3e} / {f32:.3e}")
+            if deal > f32:
+                raise AssertionError(f"f32 sharded gradient {leaf} is farther from the unsharded "
+                                     f"one ({deal:.3g}) than that is from float64 ({f32:.3g})")
+        loss_gap = abs(r["ref_train"]["losses"][0] - r["ref64_train"]["losses"][0])
+        off = max(abs(a - b) for a, b in zip(r["train"]["losses"], r["ref_train"]["losses"]))
+        print(f"    f32 1920x1080: the 2 steps' losses {r['train']['losses']}, unsharded "
+              f"{r['ref_train']['losses']}: max |d| {off:.3e} against the f32 loss gap "
+              f"{loss_gap:.3e} (unsharded f32 - f64, first step)")
+        if off > loss_gap:
+            raise AssertionError("the 2-rank sharded losses are off the unsharded ones beyond "
+                                 "the f32 gap")
+        f = res["cases"]["frame 1920x1080 f32"]
+        two_rank_ms, unsharded_2_ms = f["sharded_ms"], f["unsharded_ms"]
+
+        # (b) fit --sharded on one NCCL rank, as phase 9 runs it.
+        target_png = os.path.join(work, "target.png")
+        write_png(encode_rgb8(target_img).cpu().numpy(), target_png)
+        fitted = os.path.join(work, "fitted.yaml")
+        t0 = time.perf_counter()
+        text, fit_counts = _torchrun([
+            "fit", os.path.join("scenes", "default.yaml"), target_png, "--fit", "disk.outer",
+            "--steps", "5", "--lr", "0.05", "--starmap", grid_path, "--force", "-o", fitted,
+            "--sharded"])
+        print("  | " + text.strip().replace("\n", "\n  | "))
+        lines = _loss_lines(text)
+        with open(fitted, "rb") as f:
+            same_yaml = f.read() == fit9["yaml"]
+        outer = yaml.safe_load(open(fitted))["scene"]["diskOuter"]
+        print(f"  fit --sharded, 1 rank (nccl): {time.perf_counter() - t0:.1f} s (cold), kernel "
+              f"counts {fit_counts}; loss lines equal to phase 9's: {lines == fit9['lines']} "
+              f"({len(lines)} lines); fitted YAML equal to phase 9's byte for byte: {same_yaml}; "
+              f"disk.outer 13 -> {outer}")
+        if len(lines) != 6 or lines != fit9["lines"]:
+            raise AssertionError(f"the sharded fit printed other losses than phase 9's: {lines} "
+                                 f"against {fit9['lines']}")
+        if not same_yaml:
+            raise AssertionError("the sharded fit's YAML differs from phase 9's")
+        if min(fit_counts[k] for k in ("b1", "b2", "b3", "b4")) < 1 or fit_counts["plain"]:
+            raise AssertionError("the sharded fit did not go through the four kernels alone")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) one NCCL rank in this process: the sharded frame against the
+    # unsharded one, in turns.
+    cfg = _scene(1920, 1080, "float32")
+    params, static = cfg.params(dev), cfg.static()
+    initialize_distributed(device=dev)
+    try:
+        mesh = make_mesh(dev)
+        if not torch.equal(render_sharded(params, static, grid32, mesh=mesh),
+                           render(params, static, grid32)):
+            raise AssertionError("the 1-rank sharded frame differs from the unsharded one")
+        times = {"sharded": [], "unsharded": []}
+        for _ in range(2):
+            for name, fn in (("sharded", lambda: render_sharded(params, static, grid32,
+                                                                 mesh=mesh)),
+                             ("unsharded", lambda: render(params, static, grid32))):
+                times[name].append(_host_ms(fn, 10))
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"  (c) warm 1920x1080 f32 frame (render, no bloom), host clock: 1 rank (nccl) sharded "
+          + " / ".join(f"{t:.3f}" for t in times["sharded"]) + " ms, unsharded "
+          + " / ".join(f"{t:.3f}" for t in times["unsharded"]) + f" ms (in turns); 2 gloo "
+          f"ranks on the one card {two_rank_ms:.3f} ms a frame against {unsharded_2_ms:.3f} ms "
+          f"unsharded beside them  [{card}]")
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return {"fit": fit_counts, "render": render_counts}
+
+
 def main():
+    if sys.argv[1:2] == ["_cli"]:
+        return _cli_under_torchrun(sys.argv[2:])
     # ---- 1. the card --------------------------------------------------
     _banner("1. card")
     if not torch.cuda.is_available():
@@ -790,6 +1032,8 @@ def main():
     from blackstar_tpu_torch.ops.filters import bloom
     from blackstar_tpu_torch.ops.march_vjp import (march_adjoint_from_checkpoints,
                                                    march_adjoint_reference)
+    from blackstar_tpu_torch.parallel.mesh import Mesh
+    from blackstar_tpu_torch.parallel.render import shard_pixels
     from blackstar_tpu_torch.render import render, render_image, safe_distance
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.artifact import ensure_star_grid
@@ -913,6 +1157,8 @@ def main():
             raise AssertionError(f"PNG is {rgb8.shape}, max {rgb8.max()}")
         print(f"  {png}: {os.path.getsize(png)} bytes, {rgb8.shape}, "
               f"mean {rgb8.mean():.2f}, non-black pixels {(rgb8.max(axis=-1) > 0).mean():.3f}")
+        with open(png, "rb") as f:
+            png5 = f.read()  # phase 17's sharded render must write these bytes
     finally:
         shutil.rmtree(out_dir)
 
@@ -975,7 +1221,20 @@ def main():
     print("  B3's wrapper (clamped and unclamped) ran under sync-debug mode 'error': it "
           "never waited for the card")
     b3_ms = _cuda_ms(b3_call, 10)
-    b3_kernel_ms = _kernel_ms(b3_call, "star_lookup_kernel", 10)
+    # B3's kernel on the frame and on the band shard rank 0 of two renders
+    # (phase 17's deal: rows of bands 0, 2, 4, ...; the frame's own rays,
+    # since every stage is per ray), with and without the width hint.
+    shard = shard_pixels(1080, 1920, Mesh(rank=0, size=2, device=dev))
+    s_vel, s_esc = ker.vel[shard].contiguous(), escaped[shard]
+    b3_kms = _kernel_ms_turns({
+        "frame": b3_call,
+        "shard": lambda: b3.star_lookup_cuda(grid32, s_vel, inten, sat, s_esc, width=1920),
+        "shard, no hint": lambda: b3.star_lookup_cuda(grid32, s_vel, inten, sat, s_esc)},
+        "star_lookup_kernel", 10)
+    b3_kernel_ms = b3_kms["frame"]
+    print(f"  B3 kernel (torch.profiler): frame {b3_kernel_ms:.4f} ms; rank 0's band shard of two "
+          f"{b3_kms['shard']:.4f} ms with the width hint, {b3_kms['shard, no hint']:.4f} ms "
+          f"without  [{card}]")
     lookup_ms = _host_ms(lambda: grid32.lookup(ker.vel, inten, sat, escaped), 2)
     n_escaped = int(escaped.sum())
     star_table_bytes, star_slots = _star_work(grid32, ker.vel, escaped)
@@ -1147,6 +1406,9 @@ def main():
         if min(fit_launches.values()) < 1 or max(fit_plain.values()) != 0:
             raise AssertionError("the fit did not go through the four kernels alone")
         losses = [float(v) for v in re.findall(r"step\s+\d+/\d+\s+loss (\S+)", text)]
+        fit9 = {"lines": _loss_lines(text)}  # phase 17's sharded fit must print and write these
+        with open(out_yaml, "rb") as f:
+            fit9["yaml"] = f.read()
         fitted_outer = yaml.safe_load(open(out_yaml))["scene"]["diskOuter"]
         print(f"  losses {losses}; disk.outer 13 -> {fitted_outer} (target 12.5)")
         if len(losses) != 5 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1225,7 +1487,7 @@ def main():
 
     cot_acc, cot_vel = march_accuracy.cotangents(n_rays, 10, dt, dev)
 
-    # Both bind the 1080p rays and scene now: phase 14 calls them again.
+    # Both bind the 1080p rays and scene now: phase 18 calls them again.
     def b2_call(cot_acc=cot_acc, cot_vel=cot_vel, pos0=pos0, planes=planes, static=static,
                 ckpt=ckpt, rsteps=rsteps, kw=kw):
         return b2.march_adjoint_cuda(pos0, planes, cot_acc, cot_vel, static=static,
@@ -1494,8 +1756,11 @@ def main():
     # ---- 16. the star build side -----------------------------------------
     _star_build_phase(grid_path)
 
-    # ---- 17. B2's float32 gate at the training shape ---------------------
-    _banner("17. B2 march adjoint kernel vs plain adjoints at the 1920x1080 float32 training "
+    # ---- 17. the sharded slice ------------------------------------------
+    sharded = _sharded_phase(dev, grid32, grid_path, card, png5, fit9, target_img)
+
+    # ---- 18. B2's float32 gate at the training shape ---------------------
+    _banner("18. B2 march adjoint kernel vs plain adjoints at the 1920x1080 float32 training "
             "shape, 4 sets of seeded random cotangents")
     torch.cuda.empty_cache()
     print("  B2 at the training shape (B1's checkpoints):")
@@ -1508,14 +1773,17 @@ def main():
          "replaces": "blackstar_tpu/ops/march_pallas.py:104",
          "launches": fit_launches["b1"], "launches_render": launches["b1"],
          "launches_animation": ani_launches["b1"], "launches_scenes": scene_launches["b1"],
-         "max_abs_err": b1_err, "plain_max_abs_err": b1_plain_err,
+         "launches_sharded": sharded["fit"]["b1"],
+         "launches_sharded_render": sharded["render"]["b1"], "max_abs_err": b1_err,
+         "plain_max_abs_err": b1_plain_err,
          "ms": b1_ms, "kernel_ms": b1_kernel_ms, "plain_ms": march_ms,
          "ckpt_ms": b1_ckpt_ms, "ckpt_kernel_ms": b1_ckpt_kernel_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None},
         {"name": "march adjoint (B2)", "route": "cuda",
          "source": "blackstar_tpu_torch/ops/csrc/march_adjoint.cu",
          "replaces": "blackstar_tpu/ops/march_adjoint_pallas.py:92",
-         "launches": fit_launches["b2"], "max_abs_err": b2_err,
+         "launches": fit_launches["b2"], "launches_sharded": sharded["fit"]["b2"],
+         "max_abs_err": b2_err,
          "plain_max_abs_err": b2_plain_err,
          "ms": b2_ms,
          "kernel_ms": b2_kernel_ms, "plain_ms": adjoint_ms,
@@ -1525,13 +1793,18 @@ def main():
          "replaces": "blackstar_tpu/stars/grid.py:717",
          "launches": fit_launches["b3"], "launches_render": launches["b3"],
          "launches_animation": ani_launches["b3"], "launches_scenes": scene_launches["b3"],
-         "max_abs_err": b3_err, "ms": b3_ms, "kernel_ms": b3_kernel_ms, "plain_ms": lookup_ms,
+         "launches_sharded": sharded["fit"]["b3"],
+         "launches_sharded_render": sharded["render"]["b3"], "max_abs_err": b3_err,
+         "ms": b3_ms, "kernel_ms": b3_kernel_ms,
+         "kernel_ms_band_shard": b3_kms["shard"],
+         "kernel_ms_band_shard_no_hint": b3_kms["shard, no hint"], "plain_ms": lookup_ms,
          "ptxas": ptxas[b3].get("star_lookup_kernel<float>"),
          "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None},
         {"name": "star VJP (B4)", "route": "cuda",
          "source": "blackstar_tpu_torch/stars/csrc/star_lookup.cu",
          "replaces": "blackstar_tpu/stars/grid.py:377",
-         "launches": fit_launches["b4"], "max_abs_err": b4_err, "ms": b4_ms,
+         "launches": fit_launches["b4"], "launches_sharded": sharded["fit"]["b4"],
+         "max_abs_err": b4_err, "ms": b4_ms,
          "ptxas": ptxas[b3].get("star_vjp_kernel<float>"),
          "kernel_ms": b4_kernel_ms, "plain_ms": star_vjp_ms,
          "bound_ms": b4_bound[0], "bound_by": b4_bound[1], "library_ms": None},
