@@ -83,11 +83,17 @@ phase exits non-zero):
    non-escaped rays to 507 tiles) and the 470k-star grid in float32: its
    coverage and missed-overflow share, K1 + K2 against the plain passes and
    the stage against B3 on covered, not-missed rays (B3's f32 gates), and
-   the times of K1, K2, the stage and B3 on the same rays;
+   the times of K1, K2, the stage and B3 on the same rays (K1 and K2 also
+   on phase 13's graph clock);
 13. the dynamic-gather probe through its entry point ``python -m
    blackstar_tpu_torch.scripts.probe_dynamic_gather``: the row gather, lane
-   gather and range copy kernels at every size, each equal bit for bit to
-   its plain version, with their times and the library calls' times;
+   gather and range copy kernels at every size of the TPU probe, each equal
+   bit for bit to its plain version, and at every size the kernel's, the
+   plain version's, the library call's and an empty kernel's (launched with
+   the kernel's grid: the floor) times on the graph clock (300 calls
+   captured in one CUDA graph and replayed warm, as the TPU probe times 300
+   calls in one jitted loop), with the wrapper's time a host call beside
+   them;
 14. the animation: ``python -m blackstar_tpu_torch animate
    animations/default-ani.yaml --render -f`` (375 frames at 1920×1080
    supersampled, float32, the 470k-star sky, bloom 0.7); B1 and B3 must
@@ -134,16 +140,29 @@ phase exits non-zero):
    gives no scaling figure); B3's kernel time on a band shard is taken in
    phase 5, where torch.profiler still sees it;
 18. B2 at the 1920×1080 training shape held as in phase 7, over 4 sets of
-   cotangents: last, because the plain adjoints' millions of launches
-   before a profile left torch.profiler blind to B2.
+   cotangents: after every profile, because the plain adjoints' millions
+   of launches before a profile left torch.profiler blind to B2;
+19. B2's float32 gradient gate (``scripts/fit_partials.gradient_gate``):
+   ``scenes/default.yaml`` at 1920×1080 with the 470k-star sky, every leaf
+   trainable; at the scene's own parameters with three targets (``diskOuter``
+   12.5; ``mass`` 1.02; ``diskInner`` 2.2 with ``diskOpacity`` 0.85) and at
+   iterates 5 and 10 of the float64 Adam fit to the first (lr 1e-3), the
+   float32 gradient through B2 and through the plain float32 adjoint from
+   the same B1 checkpoints, each against B2's float64 gradient there: on
+   every leaf at every point B2's relative error must be at most
+   ``GATE_MARGIN`` (1.05) × the plain adjoint's + 1e-7.
 
 The last two lines of stdout are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``. Per kernel, ``ms`` is the wrapper's time
 per call as the main path calls it (CUDA events), ``kernel_ms`` the
 kernel's own device time (torch.profiler), ``plain_ms`` the plain version's
 time per call, all at the 1080p shapes (for the probe kernels: their
-largest size, and ``library_ms`` the PyTorch call that computes the same);
+largest size, with ``kernel_ms``, ``plain_ms`` and ``library_ms``, the
+PyTorch call that computes the same, on the graph clock, ``floor_ms`` the
+empty kernel's time at the kernel's grid on that clock, and ``ms`` the
+wrapper's per host call);
 B1's ``ckpt_ms`` / ``ckpt_kernel_ms`` are its checkpointing variant's;
+K1's and K2's ``graph_ms`` their kernel on the graph clock;
 ``max_abs_err`` the largest error against the plain version on the card
 (B1: RGBA, and B2: the direction gradients, at 1080p in float32 against
 the plain float64 march and adjoint, with ``plain_max_abs_err`` the plain
@@ -1038,7 +1057,8 @@ def main():
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.artifact import ensure_star_grid
     from blackstar_tpu_torch.stars.grid import StarGrid, load_star_grid_compact
-    from blackstar_tpu_torch.scripts import kernel_sass, march_accuracy, star_rows, step_profile
+    from blackstar_tpu_torch.scripts import (fit_partials, graph_ms, kernel_sass,
+                                             march_accuracy, star_rows, step_profile)
     from blackstar_tpu_torch.scripts import probe_dynamic_gather as probe
     from blackstar_tpu_torch.scripts import proto_window_kernel as proto
     from blackstar_tpu_torch.stars import window
@@ -1667,6 +1687,9 @@ def main():
     k2_ms = _cuda_ms(lambda: wk.k2_cuda(*k2_args), 10)
     k2_kernel_ms = _kernel_ms(lambda: wk.k2_cuda(*k2_args), "k2_kernel", 10)
     k2_plain_ms = _host_ms(lambda: window.k2_reference(*k2_args), 2)
+    # The probe's graph clock (100 calls in one CUDA graph, replayed warm).
+    k1_graph_ms = graph_ms(lambda: wk.k1_cuda(*k1_args), 100)
+    k2_graph_ms = graph_ms(lambda: wk.k2_cuda(*k2_args), 100)
     stage_ms = _cuda_ms(lambda: window.window_stage(fv, fesc, grid32, *fshade), 10)
     frame_b3_ms = _cuda_ms(lambda: b3.star_lookup_cuda(grid32, fv, inten, sat, fesc), 10)
     prof = step_profile.profile_steps(lambda: window.window_stage(fv, fesc, grid32, *fshade), 3)
@@ -1708,10 +1731,12 @@ def main():
     print(f"  work: K1 {n_cov} covered rays, {torch.unique(cells).numel()} distinct base rows; "
           f"K2 {int(part.sum())} rays with an overflow row in their window, {k2_rows.numel()} "
           f"distinct overflow rows")
-    for what, ms, kms, plain, bound in (("K1", k1_ms, k1_kernel_ms, k1_plain_ms, k1_bound),
-                                        ("K2", k2_ms, k2_kernel_ms, k2_plain_ms, k2_bound)):
-        print(f"  {what}: wrapper {ms:.3f} ms, kernel {kms:.3f} ms, plain {plain:.3f} ms, "
-              f"bound {bound[0]:.4f} ms by {bound[1]}  [{card}]")
+    for what, ms, kms, gms, plain, bound in (
+            ("K1", k1_ms, k1_kernel_ms, k1_graph_ms, k1_plain_ms, k1_bound),
+            ("K2", k2_ms, k2_kernel_ms, k2_graph_ms, k2_plain_ms, k2_bound)):
+        print(f"  {what}: wrapper {ms:.3f} ms, kernel {kms:.4f} ms (profiler) / {gms:.4f} ms "
+              f"(graph clock), plain {plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]}  "
+              f"[{card}]")
     print(f"  windowed stage (pre-pass, K1, K2, glue) {stage_ms:.3f} ms against B3 {frame_b3_ms:.3f} "
           f"ms on the same {n_all} rays; coverage {coverage:.4f} of the escaped rays  [{card}]")
     del inp, k1_out, k1_ref, k2_out, k2_ref, w_rgb, fv
@@ -1735,17 +1760,18 @@ def main():
             raise AssertionError(f"the probe's {name} kernel was never launched")
         largest = [r for r in probe_results if r["kernel"] == name][-1]
         bound = _bound(largest["bytes"], 0)
-        kms = _kernel_ms(largest["call"], name.replace(" ", "_") + "_kernel", 10)
-        print(f"  {name} at {largest['size'].strip()}: wrapper {largest['ms']:.4f} ms, kernel "
-              f"{kms:.4f} ms, plain {largest['plain_ms']:.4f} ms, library "
-              f"{largest['library_ms']:.4f} ms, bound {bound[0]:.5f} ms by bytes  [{card}]")
+        print(f"  {name} at {largest['size'].strip()} (graph clock): kernel "
+              f"{largest['kernel_ms']:.5f} ms, floor {largest['floor_ms']:.5f}, plain "
+              f"{largest['plain_ms']:.5f}, library {largest['library_ms']:.5f}, bound "
+              f"{bound[0]:.5f} ms by bytes; wrapper {largest['ms']:.5f} ms a host call  [{card}]")
         probe_entries.append({
             "name": f"{name} (probe)", "route": "cuda",
             "source": "blackstar_tpu_torch/scripts/csrc/probe_dynamic_gather.cu",
             "replaces": PROBE_REPLACES[name], "launches": probe_path[f"{name} launches"],
             "max_abs_err": 0.0, "size": largest["size"].strip(), "ms": largest["ms"],
-            "kernel_ms": kms, "plain_ms": largest["plain_ms"], "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": largest["library_ms"]})
+            "kernel_ms": largest["kernel_ms"], "floor_ms": largest["floor_ms"],
+            "plain_ms": largest["plain_ms"], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": largest["library_ms"]})
 
     # ---- 14. the animation through its CLI -------------------------------
     ani_launches = _animation_phase(dev, grid32, card)
@@ -1765,6 +1791,20 @@ def main():
     torch.cuda.empty_cache()
     print("  B2 at the training shape (B1's checkpoints):")
     b2_err, b2_plain_err = b2_gate()
+
+    # ---- 19. B2's float32 gradient gate at shared parameters -------------
+    _banner("19. B2's float32 gradient gate: B2 f32 against the plain f32 adjoint, each against "
+            "B2 f64, at 1920x1080 at the starts of three fits and iterates 5 and 10 of one")
+    torch.cuda.empty_cache()
+    grid64 = compact.to_grid(dev, dtype=torch.float64)
+    gate = fit_partials.gradient_gate({torch.float32: grid32, torch.float64: grid64}, dev)
+    if not gate["held"]:
+        raise AssertionError("B2's float32 gradient misses the float64 one by more than "
+                             f"{fit_partials.GATE_MARGIN} x the plain float32 adjoint's + "
+                             f"{fit_partials.GATE_ATOL}: "
+                             + "; ".join(f"{p}, {leaf}: B2 {a:.4e}, plain {b:.4e}"
+                                         for p, leaf, a, b in gate["failures"]))
+    del grid64
 
     # ---- results -------------------------------------------------------
     kernels = [
@@ -1812,13 +1852,15 @@ def main():
          "source": "blackstar_tpu_torch/stars/csrc/star_window.cu",
          "replaces": "scripts/proto_window_kernel.py:102",
          "launches": window_path["k1 launches"], "launches_frame": frame_counts["k1 launches"],
-         "max_abs_err": k1_err, "ms": k1_ms, "kernel_ms": k1_kernel_ms, "plain_ms": k1_plain_ms,
+         "max_abs_err": k1_err, "ms": k1_ms, "kernel_ms": k1_kernel_ms,
+         "graph_ms": k1_graph_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "windowed stage overflow pass (K2)", "route": "cuda",
          "source": "blackstar_tpu_torch/stars/csrc/star_window.cu",
          "replaces": "scripts/proto_window_kernel.py:136",
          "launches": window_path["k2 launches"], "launches_frame": frame_counts["k2 launches"],
-         "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms, "plain_ms": k2_plain_ms,
+         "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms,
+         "graph_ms": k2_graph_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
         *probe_entries,
     ]

@@ -43,16 +43,19 @@ SCENE = {
 GRAD_RTOL = 1e-8
 
 
-def _sky(jcfg):
+def _sky(jcfg, width=12, height=7, rays=None):
     """Stars placed on (perturbed) escaped-ray directions of the frame, so
     the PSF query hits: a random catalogue almost never lands within
-    0.0015 rad of only 84 rays."""
+    0.0015 rad of only 84 rays. ``rays``: as many escaped rays, drawn at
+    random, instead of all."""
     params, static = jcfg.params(), jcfg.static()
-    pos0, vel0 = j_generate_rays(params.camera, 12, 7, dtype=jnp.float64)
+    pos0, vel0 = j_generate_rays(params.camera, width, height, dtype=jnp.float64)
     res = j_run_march(pos0, vel0, params, static, use_pallas=False)
     esc = np.asarray(res.vel)[np.asarray(res.status) == ESCAPED]
     esc = esc / np.linalg.norm(esc, axis=-1, keepdims=True)
     rng = np.random.default_rng(9)
+    if rays is not None:
+        esc = esc[rng.choice(len(esc), rays, replace=False)]
     spos = np.repeat(esc, 3, axis=0) + 5e-4 * rng.normal(size=(esc.shape[0] * 3, 3))
     spos /= np.linalg.norm(spos, axis=-1, keepdims=True)
     return Catalog(pos=spos, mag=rng.integers(600, 1100, len(spos)).astype(np.int32),
@@ -135,6 +138,62 @@ def test_fit_scene_steps_match_jax(setup):
         moved = not np.array_equal(got.numpy(), np.asarray(start))
         assert moved == keep(path), path
     assert tlosses[-1] < tlosses[0]
+
+
+# The float32 conditioning case: scenes/default.yaml at 96×54 (bloom off,
+# as the loss is taken before bloom), a sky on 400 of its escaped rays.
+F32_SIZE = (96, 54)
+# The port's float32 error against JAX's float64 gradient, per leaf, may be
+# at most F32_FACTOR × JAX's own float32 error + F32_FLOOR. Measured on
+# this case: the ratio is 0.70-0.93 on the camera leaves and the mass,
+# whose errors are 1e-2 to 3e-2 in both; below 1e-4 both packages round
+# alike and the ratio is noise (0.6-17).
+F32_FACTOR, F32_FLOOR = 2.0, 1e-4
+
+
+def test_f32_camera_and_mass_miss_is_the_references_too():
+    """The float32 gradients of the camera leaves and the mass miss the
+    float64 gradient by 1e-2 of their size or more near the photon ring in
+    the JAX package's own XLA path (``jax.jit(jax.grad)`` on the CPU) as in
+    the port's plain float32 path: that conditioning belongs to float32,
+    not to the port. Every leaf; the port's error is held to JAX's."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "scenes", "default.yaml")) as f:
+        doc = yaml.safe_load(f)
+    width, height = F32_SIZE
+    doc["scene"].update(resolution=[width, height], bloomStrength=0.0)
+
+    def configs(dtype):
+        d = {"camera": doc["camera"], "scene": dict(doc["scene"], dtype=dtype)}
+        return JConfig.from_dict(d), tconfig.Config.from_dict(d)
+
+    (j64, _), (j32, t32) = configs("float64"), configs("float32")
+    cat = _sky(j64, width, height, rays=400)
+    target = np.random.default_rng(3).uniform(0.0, 0.6, size=(height, width, 3))
+    grad = jax.jit(jax.grad(jfit.image_loss), static_argnums=1)
+
+    def jax_grad(jcfg, dtype):
+        g = grad(jcfg.params(), jcfg.static(), jnp.asarray(target, dtype),
+                 build_star_grid(cat, dtype=dtype))
+        return [np.asarray(v, np.float64) for v in jax.tree.leaves(g)]
+
+    g64, g32 = jax_grad(j64, jnp.float64), jax_grad(j32, jnp.float32)
+    tp = t32.params("cpu")
+    for _, leaf in tconfig.param_leaves(tp):
+        leaf.requires_grad_(True)
+    tfit.image_loss(tp, t32.static(), torch.from_numpy(target).float(),
+                    tgrid.build_star_grid_compact(cat).to_grid("cpu", dtype=torch.float32)
+                    ).backward()
+    for (path, leaf), want, ref in zip(tconfig.param_leaves(tp), g64, g32):
+        norm = np.linalg.norm(want)
+        if path == ".bloom_strength":  # outside the loss
+            assert leaf.grad is None and norm == 0
+            continue
+        port_err = np.linalg.norm(leaf.grad.double().numpy() - want) / norm
+        jax_err = np.linalg.norm(ref - want) / norm
+        assert port_err <= F32_FACTOR * jax_err + F32_FLOOR, (path, port_err, jax_err)
+        if path.startswith(".camera") or path == ".mass":
+            assert jax_err > 1e-3, (path, jax_err)
 
 
 def test_srgb_decode_matches_jax_and_inverts_encode():

@@ -45,14 +45,75 @@ def test_lane_gather_matches_pallas(rows, cols):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_range_copy_matches_probe_slice():
-    """The slice the TPU probe holds its range DMA to: tbl[128:128+rows, :128]."""
+def _range_copies():
+    """The port's range copy of the TPU probe's seeded table at each of its
+    sizes, beside the slice the TPU probe holds its range DMA to:
+    tbl[128:128+rows, :128]."""
     rng = np.random.default_rng(0)
     tbl = rng.standard_normal(tprobe.RANGE_TABLE).astype(np.float32)
     start = torch.tensor([tprobe.RANGE_START], dtype=torch.int32)
     for rows in tprobe.RANGE_ROWS:
         got = tprobe.range_copy_cuda(torch.from_numpy(tbl), start, rows)
-        np.testing.assert_array_equal(got.numpy(), tbl[128:128 + rows, :128])
+        yield got.numpy(), tbl[128:128 + rows, :128]
+
+
+def test_range_copy_matches_probe_slice():
+    for got, want in _range_copies():
+        np.testing.assert_array_equal(got, want)
+
+
+def test_range_copy_matches_probe_dma_interpret(capsys):
+    """The TPU probe's own range DMA, run in interpret mode, holds its copy
+    to that slice at every size; the port's copy equals the same slice of
+    the same seeded table."""
+    jprobe.probe_range_dma(True)
+    out = capsys.readouterr().out
+    assert out.count("ok=True") == len(tprobe.RANGE_ROWS), out
+    for got, want in _range_copies():
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", ["out_cols unaligned", "out_cols too wide", "rows past table",
+                                  "no rows", "table width unaligned"])
+def test_range_copy_rejects_what_the_kernel_cannot_take(device, case):
+    """The wrapper's checks run before it picks the kernel or the plain
+    version, so the CPU and a meta tensor (no data) raise as the card would."""
+    m, cols, rows, out_cols = 64, 256, 8, 128
+    if case == "out_cols unaligned":
+        out_cols = 126
+    elif case == "out_cols too wide":
+        out_cols = tprobe.COPY_MAX_COLS + 4
+        cols = 2 * tprobe.COPY_MAX_COLS
+    elif case == "rows past table":
+        rows = m + 1
+    elif case == "no rows":
+        rows = 0
+    else:
+        cols, out_cols = 130, 8
+    tbl = torch.zeros((m, cols), device=device)
+    start = torch.zeros((1,), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="range_copy_cuda: (out_cols|rows)"):
+        tprobe.range_copy_cuda(tbl, start, rows, out_cols)
+
+
+def test_range_copy_plain_rejects_a_start_past_the_table():
+    """``start + rows <= M``, which the wrapper cannot check on the card
+    without waiting for it, is checked by the plain version."""
+    tbl = torch.zeros((64, 256))
+    start = torch.tensor([60], dtype=torch.int32)
+    np.testing.assert_array_equal(tprobe.range_copy_cuda(tbl, start, 4).numpy(), np.zeros((4, 128)))
+    with pytest.raises(IndexError):
+        tprobe.range_copy_cuda(tbl, start, 5)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("cols", [126, tprobe.LANE_MAX_COLS + 4])
+def test_lane_gather_rejects_widths_the_kernel_cannot_take(device, cols):
+    tbl = torch.zeros((8, cols), device=device)
+    idx = torch.zeros((8, cols), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="lane_gather_cuda: L must be"):
+        tprobe.lane_gather_cuda(tbl, idx)
 
 
 def test_entry_point_cpu(capsys):
