@@ -9,9 +9,21 @@
 // Their plain PyTorch twins sit beside the wrappers in
 // blackstar_tpu_torch/scripts/probe_dynamic_gather.py.
 //
-//   row gather  out[i, :] = tbl[idx[i], :]: one warp per output row, each lane
-//               moving 16-byte float4s, so a warp reads one table row and
-//               writes one output row in whole 512-byte runs.
+//   row gather  out[i, :] = tbl[idx[i], :]: one warp per output row,
+//               kRowWarps rows a block (512 blocks at 2048 rows). A lane
+//               issues all its 16-byte float4 loads of the row (at most
+//               kRowPerLane a pass) before its first store, so a warp waits
+//               for one table round trip after its index, not one per load;
+//               the warp reads one table row and writes one output row in
+//               whole 512-byte runs. Measured in turns on one card and
+//               slower: bulk copies (cp.async.bulk) of each row into shared
+//               memory, all on one mbarrier, then one bulk store a block, at
+//               4, 8 or 16 rows a block (or as many as fill the SMs once),
+//               with a barrier and a store per row, or with an evict-first
+//               store (6-45% slower than this kernel's first design at 2048
+//               rows, no faster at fewer); 1, 16 or 32 warps a block, or 8
+//               or 16 lanes a row. 2 or 8 warps a block measured the same;
+//               no-allocate loads and evict-first stores changed nothing.
 //   lane gather out[i, j] = tbl[i, idx[i, j]]: one warp per row, kLaneWarps
 //               rows a block (256 blocks at 512 rows). The warp loads its
 //               whole index row as int4s and its table row (at most
@@ -50,7 +62,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // the row gather's block
+constexpr int kRowWarps = 4;      // rows (one a warp) per row-gather block
+constexpr int kRowPerLane = 4;    // float4 loads a lane issues before its stores
 constexpr int kLaneWarps = 2;     // rows (one a warp) per lane-gather block
 constexpr int kLaneMaxCols = 1024;  // floats a lane-gather row at most (4 KiB a warp)
 constexpr int kLanePerLane = kLaneMaxCols / 128;  // int4s / float4s a lane at most
@@ -63,8 +76,8 @@ enum Kernel { kRowGather = 0, kLaneGather = 1, kRangeCopy = 2 };
 void dims(int which, int rows, int* grid, int* block) {
   switch (which) {
     case kRowGather:
-      *grid = (int)(((int64_t)rows * 32 + kThreads - 1) / kThreads);
-      *block = kThreads;
+      *grid = (rows + kRowWarps - 1) / kRowWarps;
+      *block = kRowWarps * 32;
       break;
     case kLaneGather:
       *grid = (rows + kLaneWarps - 1) / kLaneWarps;
@@ -76,15 +89,28 @@ void dims(int which, int rows, int* grid, int* block) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowWarps * 32)
 row_gather_kernel(const float* __restrict__ tbl, const int32_t* __restrict__ idx, int rows,
                   int cols, float* __restrict__ out) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t i = (int64_t)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (warp >= rows) return;
-  const float4* src = reinterpret_cast<const float4*>(tbl + (int64_t)idx[warp] * cols);
-  float4* dst = reinterpret_cast<float4*>(out + warp * cols);
-  for (int j = lane; j < cols / 4; j += 32) dst[j] = __ldg(src + j);
+  if (i >= rows) return;  // a whole warp
+  const int q = cols >> 2;  // float4s a row
+  const float4* src = reinterpret_cast<const float4*>(tbl + (int64_t)__ldg(idx + i) * cols);
+  float4* dst = reinterpret_cast<float4*>(out + i * cols);
+  for (int base = lane; base < q; base += 32 * kRowPerLane) {
+    float4 v[kRowPerLane];
+#pragma unroll
+    for (int t = 0; t < kRowPerLane; ++t) {
+      const int j = base + 32 * t;
+      if (j < q) v[t] = __ldg(src + j);
+    }
+#pragma unroll
+    for (int t = 0; t < kRowPerLane; ++t) {
+      const int j = base + 32 * t;
+      if (j < q) dst[j] = v[t];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kLaneWarps * 32)
@@ -182,6 +208,7 @@ int bs_probe_dims(int which, int rows, int* grid, int* block) {
 
 int bs_row_gather_f32(const void* tbl, const void* idx, int rows, int cols, void* out,
                       void* stream) {
+  if (cols % 4) return (int)cudaErrorInvalidValue;
   int grid, block;
   dims(kRowGather, rows, &grid, &block);
   row_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(

@@ -19,7 +19,8 @@ Run::
 
 At each of the TPU probe's sizes it runs the kernel and requires its output
 to equal the plain version's bit for bit (anything else raises: unlike the
-TPU probe, nothing is caught). On the card it then times, as the TPU probe
+TPU probe, nothing is caught), and the row gather also, untimed, at
+:data:`ROW_GATHER_CHECKS`. On the card it then times, as the TPU probe
 times its primitives at the device's steady state (300 calls in one jitted
 loop), the kernel's wrapper, the plain version, one PyTorch call for the
 same work (``torch.index_select``, ``torch.gather``, ``Tensor.copy_`` of the
@@ -57,6 +58,12 @@ ROW_GATHER, LANE_GATHER, RANGE_COPY = 0, 1, 2  # the source's Kernel enum
 
 ROW_GATHER_ROWS = (8, 64, 256, 512, 1024, 2048)
 ROW_GATHER_COLS = 256
+# (R, M, L) the row gather is also held to its plain version at, untimed: R
+# that fill no whole number of blocks, tables of M != R rows (the TPU
+# probe's table has R) with indices 0, M - 1 and a repeat among them, and a
+# row wider than one pass of the kernel's loads (L 1028: 257 float4s).
+ROW_GATHER_CHECKS = ((1, 1, 256), (7, 7, 256), (2047, 2047, 256), (64, 1 << 16, 256),
+                     (2048, 3, 256), (33, 40, 1028))
 LANE_GATHER_SHAPES = ((8, 128), (256, 128), (512, 256))
 RANGE_TABLE = (1 << 16, 256)  # 64 MB of float32
 RANGE_ROWS = (64, 256, 1024)
@@ -130,13 +137,19 @@ row_gather_reference.calls = 0
 
 def row_gather_cuda(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The row gather for ``tbl`` (M, L) float32 and ``idx`` (R, 1) int32
-    with entries in ``[0, M)``: the kernel on a CUDA device, the plain
-    version on the CPU."""
+    with entries in ``[0, M)``, L a multiple of 4 (the kernel moves whole
+    16-byte float4s): the kernel on a CUDA device, the plain version on the
+    CPU. Raises on any other shape, on every device, and on the card unless
+    ``tbl`` starts on 16 bytes."""
+    if tbl.dim() != 2 or idx.dim() != 2 or idx.shape[1] != 1:
+        raise ValueError("row_gather_cuda: tbl must be (M, L) and idx (R, 1)")
+    rows, cols = idx.shape[0], tbl.shape[1]
+    if cols % 4:
+        raise ValueError(f"row_gather_cuda: L must be a multiple of 4, got {cols}")
     if not _on_card("row_gather_cuda", (tbl, idx)):
         return row_gather_reference(tbl, idx)
-    rows, cols = idx.shape[0], tbl.shape[1]
-    if idx.shape != (rows, 1) or cols % 4 or tbl.data_ptr() % 16:
-        raise ValueError("row_gather_cuda: idx must be (R, 1) and tbl rows whole float4s")
+    if tbl.data_ptr() % 16:
+        raise ValueError("row_gather_cuda: tbl must start on 16 bytes")
     out = torch.empty((rows, cols), dtype=tbl.dtype, device=tbl.device)
     _build.check(build().bs_row_gather_f32(tbl.data_ptr(), idx.data_ptr(), rows, cols,
                                            out.data_ptr(), _build.stream_handle(tbl.device)),
@@ -288,10 +301,44 @@ def _probe(name, size, kernel_call, plain_call, library_call, want, units, nbyte
                 f"{res['bound_ms']:.5f} ms (bytes), bound/kernel {res['bound_ms'] / kms:.3f}")
         if floor is not None:
             msg += f", max(bound, floor)/kernel {max(res['bound_ms'], floor) / kms:.3f}"
-        msg += (f"; plain {res['plain_ms']:.5f}, library {res['library_ms']:.5f} ms (graph "
+        library = getattr(library_call, "func", library_call).__name__
+        msg += (f"; plain {res['plain_ms']:.5f}, {library} {res['library_ms']:.5f} ms (graph "
                 f"clock, grid {grid}); wrapper {res['ms']:.5f} ms a host call")
     print(msg, flush=True)
     return res
+
+
+def row_gather_inputs(rows: int, m: int, cols: int = ROW_GATHER_COLS):
+    """A seeded (M, L) float32 table and (R, 1) int32 indices into it. For
+    M == R they are the TPU probe's; otherwise the indices hold 0, M - 1
+    and a repeat of the first."""
+    rng = np.random.default_rng(0)
+    tbl = rng.standard_normal((m, cols)).astype(np.float32)
+    idx = rng.integers(0, m, (rows, 1)).astype(np.int32)
+    if m != rows:
+        idx[0, 0], idx[-1, 0] = 0, m - 1
+        idx[rows // 2, 0] = idx[0, 0]
+    return tbl, idx
+
+
+def check_row_gather(device: torch.device, path: dict) -> None:
+    """Hold the row gather to its plain version and to numpy, bit for bit,
+    at each (R, M, L) of :data:`ROW_GATHER_CHECKS`; the kernel's runs are
+    counted into ``path``, the plain version's are not. Raises on a
+    difference."""
+    for rows, m, cols in ROW_GATHER_CHECKS:
+        tbl_np, idx_np = row_gather_inputs(rows, m, cols)
+        tbl, idx = torch.from_numpy(tbl_np).to(device), torch.from_numpy(idx_np).to(device)
+        before = counts()
+        got = row_gather_cuda(tbl, idx)
+        for k, v in counts().items():
+            path[k] = path.get(k, 0) + v - before[k]
+        plain = row_gather_reference(tbl, idx) if got.device.type == "cuda" else got
+        if not (torch.equal(got, plain) and np.array_equal(plain.cpu().numpy(),
+                                                           tbl_np[idx_np[:, 0]])):
+            raise AssertionError(f"row gather R={rows} M={m} L={cols}: the kernel and its "
+                                 f"plain version differ")
+        print(f"R={rows:5d} M={m:5d} L={cols}: equal to the plain version and numpy")
 
 
 def run(device: torch.device, reps: int = REPS):
@@ -299,15 +346,13 @@ def run(device: torch.device, reps: int = REPS):
     ``(results, path)``: one dict per size (the least bytes its function
     moves and their time at :data:`PEAK_BYTES_S`, and on the card the times
     :func:`_probe` takes), and the launch and plain call counts of the
-    kernel's runs and timings (the plain versions' checks and timings are
-    not in them)."""
+    kernel's runs and timings, the row gather's :func:`check_row_gather`
+    included (the plain versions' checks and timings are not in them)."""
     results, path = [], {}
     print("--- row gather out[i, :] = tbl[idx[i], :] ---")
     for rows in ROW_GATHER_ROWS:
         cols = ROW_GATHER_COLS
-        rng = np.random.default_rng(0)
-        tbl_np = rng.standard_normal((rows, cols)).astype(np.float32)
-        idx_np = rng.integers(0, rows, (rows, 1)).astype(np.int32)
+        tbl_np, idx_np = row_gather_inputs(rows, rows)
         tbl, idx = torch.from_numpy(tbl_np).to(device), torch.from_numpy(idx_np).to(device)
         flat = idx[:, 0].long()
         dst = torch.empty((rows, cols), dtype=tbl.dtype, device=device)
@@ -317,6 +362,7 @@ def run(device: torch.device, reps: int = REPS):
             functools.partial(row_gather_reference, tbl, idx),
             functools.partial(torch.index_select, tbl, 0, flat, out=dst), tbl_np[idx_np[:, 0]],
             (rows, "row"), nbytes, rows * cols * 4, (ROW_GATHER, rows), reps, path))
+    check_row_gather(device, path)
     print("--- lane gather out[i, j] = tbl[i, idx[i, j]] ---")
     for rows, cols in LANE_GATHER_SHAPES:
         rng = np.random.default_rng(0)
@@ -366,6 +412,9 @@ def main(argv=None):
     print("device:", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     sources = [os.path.abspath(s) for s in args.source] or [SOURCE]
     package_source, totals = SOURCE, {}
+    # What is returned: the package's build's last run and its launch counts
+    # where it is among the sources, else the last run and every count.
+    keep = package_source if package_source in sources else None
     try:
         for src in sources + sources[::-1] if len(sources) > 1 else sources:
             SOURCE = src
@@ -373,13 +422,15 @@ def main(argv=None):
             if len(sources) > 1:
                 print(f"=== {os.path.relpath(src)} ===")
             results, path = run(device)
-            for k, v in path.items():
-                totals[k] = totals.get(k, 0) + v
+            if keep in (None, src):
+                kept = results
+                for k, v in path.items():
+                    totals[k] = totals.get(k, 0) + v
     finally:
         SOURCE = package_source
         build.cache_clear()
     print(f"kernel runs: {totals}")
-    return results, totals
+    return kept, totals
 
 
 if __name__ == "__main__":

@@ -4,6 +4,10 @@
 Run from the repository root on a machine with one CUDA card::
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --probe-parent build/parent/probe_dynamic_gather.cu
+
+(the second also times another build of the gather probe's source, e.g. a
+parent commit's, in turns with the package's in phase 13).
 
 Phases, each of which passes or raises (nothing is caught, so a failing
 phase exits non-zero):
@@ -88,12 +92,14 @@ phase exits non-zero):
 13. the dynamic-gather probe through its entry point ``python -m
    blackstar_tpu_torch.scripts.probe_dynamic_gather``: the row gather, lane
    gather and range copy kernels at every size of the TPU probe, each equal
-   bit for bit to its plain version, and at every size the kernel's, the
-   plain version's, the library call's and an empty kernel's (launched with
-   the kernel's grid: the floor) times on the graph clock (300 calls
-   captured in one CUDA graph and replayed warm, as the TPU probe times 300
-   calls in one jitted loop), with the wrapper's time a host call beside
-   them;
+   bit for bit to its plain version (the row gather also at R 1, 7 and
+   2047, on tables of M != R rows and at L 1028), and at every size the
+   kernel's, the plain version's, the library call's and an empty kernel's
+   (launched with the kernel's grid: the floor) times on the graph clock
+   (300 calls captured in one CUDA graph and replayed warm, as the TPU
+   probe times 300 calls in one jitted loop), with the wrapper's time a
+   host call, the bound and the kernel's share of it beside them; with
+   ``--probe-parent`` the other build's kernels too, in turns (A, B, B, A);
 14. the animation: ``python -m blackstar_tpu_torch animate
    animations/default-ani.yaml --render -f`` (375 frames at 1920×1080
    supersampled, float32, the 470k-star sky, bloom 0.7); B1 and B3 must
@@ -178,6 +184,7 @@ this run's data (the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s, float32 without tensor cores).
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -1031,6 +1038,11 @@ def _sharded_phase(dev, grid32, grid_path, card, png5, fit9, target_img):
 def main():
     if sys.argv[1:2] == ["_cli"]:
         return _cli_under_torchrun(sys.argv[2:])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--probe-parent", metavar="CU",
+                    help="another build of the gather probe's source (the same C interface) "
+                    "that phase 13 times in turns with the package's")
+    args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------
     _banner("1. card")
     if not torch.cuda.is_available():
@@ -1747,9 +1759,12 @@ def main():
     for f, _plain in probe.WRAPPERS.values():
         f.launches = 0
         _plain.calls = 0
+    probe_argv = []
+    if args.probe_parent:
+        probe_argv = ["--source", args.probe_parent, "--source", probe.SOURCE]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        probe_results, probe_path = probe.main([])
+        probe_results, probe_path = probe.main(probe_argv)
     print("  | " + log.getvalue().strip().replace("\n", "\n  | "))
     for name in probe.WRAPPERS:
         if probe_path[f"{name} launches"] < 1 or probe_path[f"{name} plain calls"] != 0:

@@ -7,6 +7,7 @@ path and not changed."""
 import importlib.util
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,13 +29,50 @@ def _inputs(rows, cols, hi):
     return tbl, rng.integers(0, hi, idx_shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("rows", [8, 256])
+@pytest.mark.parametrize("rows", tprobe.ROW_GATHER_ROWS)
 def test_row_gather_matches_pallas(rows):
     cols = tprobe.ROW_GATHER_COLS
     tbl, idx = _inputs(rows, cols, rows)
     want = np.asarray(jprobe._pallas_row_gather(rows, cols, True)(idx, tbl))
     got = tprobe.row_gather_cuda(torch.from_numpy(tbl), torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,m,cols", tprobe.ROW_GATHER_CHECKS)
+def test_row_gather_checks_match_jax(rows, m, cols):
+    """The entry point's untimed checks: R that fill no whole block, tables
+    of M != R rows with indices 0, M - 1 and a repeat, which the TPU probe's
+    kernel (a table of R rows) never takes, and a row wider than one pass of
+    the kernel's loads; held to the Pallas kernel where M == R and to
+    ``jnp.take`` otherwise."""
+    tbl, idx = tprobe.row_gather_inputs(rows, m, cols)
+    assert tbl.shape == (m, cols) and idx.shape == (rows, 1)
+    if m == rows:
+        np.testing.assert_array_equal(tbl, _inputs(rows, cols, rows)[0])
+        want = np.asarray(jprobe._pallas_row_gather(rows, tbl.shape[1], True)(idx, tbl))
+    else:
+        assert idx.min() == 0 and idx.max() == m - 1 and len(np.unique(idx)) < rows
+        want = np.asarray(jnp.take(jnp.asarray(tbl), jnp.asarray(idx[:, 0]), axis=0))
+    got = tprobe.row_gather_cuda(torch.from_numpy(tbl), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", ["L unaligned", "idx not (R, 1)", "tbl not 2-D"])
+def test_row_gather_rejects_what_the_kernel_cannot_take(device, case):
+    """The wrapper's checks run before it picks the kernel or the plain
+    version, so the CPU and a meta tensor (no data) raise as the card would."""
+    tbl_shape, idx_shape = (16, 256), (8, 1)
+    if case == "L unaligned":
+        tbl_shape = (16, 126)
+    elif case == "idx not (R, 1)":
+        idx_shape = (8, 2)
+    else:
+        tbl_shape = (256,)
+    tbl = torch.zeros(tbl_shape, device=device)
+    idx = torch.zeros(idx_shape, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="row_gather_cuda: (L must be|tbl must be)"):
+        tprobe.row_gather_cuda(tbl, idx)
 
 
 @pytest.mark.parametrize("rows,cols", [(8, 128), (256, 128)])
@@ -121,7 +159,9 @@ def test_entry_point_cpu(capsys):
     out = capsys.readouterr().out
     assert len(results) == 12 and all(r["ok"] for r in results)
     assert out.count("ok=True") == 12
-    assert path["row gather launches"] == 0 and path["row gather plain calls"] == 6
+    checks = len(tprobe.ROW_GATHER_CHECKS)
+    assert out.count("equal to the plain version and numpy") == checks
+    assert path["row gather launches"] == 0 and path["row gather plain calls"] == 6 + checks
 
 
 @pytest.mark.parametrize("which", ["row", "lane", "range"])
