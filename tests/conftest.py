@@ -25,3 +25,10 @@ _cache_dir = os.path.join(os.path.dirname(__file__), "..", ".jax_cache")
 jax.config.update("jax_compilation_cache_dir", os.path.abspath(_cache_dir))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "slow: too slow for tier-1, which runs -m 'not slow'; a plain `pytest tests/` runs it",
+    )

@@ -7,15 +7,11 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from blackstar_tpu.color import hsi_to_rgb
 from blackstar_tpu.config import Config
 from blackstar_tpu.ops.march_diff import march_diff
 from blackstar_tpu.render import render, run_march
-
-# Over 30 min alone on 8 CPUs; checks the JAX reference's interpret-mode custom VJP, which the port never imports.
-pytestmark = pytest.mark.slow
 
 
 def _cfg():
