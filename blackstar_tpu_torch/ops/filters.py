@@ -12,7 +12,9 @@ Reference semantics (``src/ImageFilters.hs``):
 
 The running window sum is an exclusive prefix sum and the difference of two
 of its entries per pixel, as in the JAX package. These are plain tensor ops:
-the JAX package has no hand-written kernel for this stage either.
+the JAX package has no hand-written kernel for this stage either. On a CUDA
+device ``bloom`` launches the hand-written kernel B5 (``ops/bloom_cuda.py``)
+instead; ``box_blur``, which the fit's loss differentiates, stays plain.
 """
 
 from __future__ import annotations
@@ -48,7 +50,15 @@ def box_blur(img: torch.Tensor, r: int, passes: int = 3) -> torch.Tensor:
 
 
 def bloom(img: torch.Tensor, strength, divider: int) -> torch.Tensor:
-    """``img + strength · boxBlur(width//divider, 3 passes)`` (ImageFilters.hs:80-86)."""
+    """``img + strength · boxBlur(width//divider, 3 passes)`` (ImageFilters.hs:80-86).
+
+    The plain version below on the CPU; on any other device the bloom
+    kernel's wrapper, which launches B5 on a CUDA device and raises for
+    anything else."""
+    if img.device.type != "cpu":
+        from blackstar_tpu_torch.ops.bloom_cuda import bloom_cuda
+
+        return bloom_cuda(img, strength, divider)
     w = img.shape[1]
     blurred = box_blur(img, w // divider, passes=3)
     return img + strength * blurred

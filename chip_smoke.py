@@ -14,9 +14,9 @@ phase exits non-zero):
 
 1. the card: CUDA must be available; print versions and the card's name
    and power limit;
-2. build the five kernel sources in the checkout in parallel, with B1's,
-   B2's and B3's + B4's cubins under ``-Xptxas -v`` (registers, stack,
-   spills) beside them;
+2. build the six kernel sources in the checkout in parallel, with B1's,
+   B2's, B3's + B4's and B5's cubins under ``-Xptxas -v`` (registers,
+   stack, spills) beside them;
 3. the march kernel B1 against the plain march on the card, default scene
    at 480×270: in float64 within 1e-7; in float32 held to the plain float64
    march of the same rays no worse than the plain float32 march is
@@ -30,8 +30,9 @@ phase exits non-zero):
    directions, one cell a lane (the most distinct rows a warp load can
    touch); each in float64 and float32;
 5. the slice: the render CLI on ``scenes/default.yaml`` at 1920×1080 in
-   float32 with stars and bloom; both kernels must carry it (launch counts
-   > 0, plain call counts 0) with no truncated ray; then warm per-frame
+   float32 with stars and bloom; B1 and B3 must carry it (launch counts
+   > 0, plain call counts 0) and B5 its bloom (1 launch), with no truncated
+   ray; then warm per-frame
    times of the render, each kernel and each plain version at the frame's
    shapes, with each kernel held to its plain version there too (B1 by
    phase 3's float32 gate), the
@@ -102,7 +103,7 @@ phase exits non-zero):
    ``--probe-parent`` the other build's kernels too, in turns (A, B, B, A);
 14. the animation: ``python -m blackstar_tpu_torch animate
    animations/default-ani.yaml --render -f`` (375 frames at 1920×1080
-   supersampled, float32, the 470k-star sky, bloom 0.7); B1 and B3 must
+   supersampled, float32, the 470k-star sky, bloom 0.7); B1, B3 and B5 must
    carry it, each launched once a frame (375 times) with no plain call, the
    native PNG writer pool must write it (the phase fails if the library
    does not build), and frames 0 and 374 must be within 1 on the uint8 scale
@@ -156,7 +157,15 @@ phase exits non-zero):
    float32 gradient through B2 and through the plain float32 adjoint from
    the same B1 checkpoints, each against B2's float64 gradient there: on
    every leaf at every point B2's relative error must be at most
-   ``GATE_MARGIN`` (1.05) × the plain adjoint's + 1e-7.
+   ``GATE_MARGIN`` (1.05) × the plain adjoint's + 1e-7;
+20. the bloom kernel B5 against the plain bloom (``img + strength ·
+   box_blur``) computed in float64 on the card: in float32 within the
+   plain float32 blur's budget, 1.5e-5 (``tests/test_filters.py``), at the
+   three shapes of that test and on the 1920×1080 default frame before
+   bloom, and in float64 within 1e-12; one launch a bloom and no wait for
+   the card (``torch.cuda.set_sync_debug_mode("error")``); then B5's and
+   the plain bloom's times at the frame's shape on the graph clock, beside
+   B5's bound (one read and one write of the image), and B5's wrapper's.
 
 The last two lines of stdout are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``. Per kernel, ``ms`` is the wrapper's time
@@ -649,12 +658,13 @@ def _oracle_scenes(dev):
 
 
 def _animation_phase(dev, grid32, card):
-    """Phase 14 (module docstring); returns B1's and B3's launches in the
-    animate CLI's run."""
+    """Phase 14 (module docstring); returns B1's, B3's and B5's launches in
+    the animate CLI's run."""
     from blackstar_tpu_torch import geodesic, native
     from blackstar_tpu_torch.animation import load_animation
     from blackstar_tpu_torch.cli import animate as cli_animate
     from blackstar_tpu_torch.imageio import encode_rgb8, read_png
+    from blackstar_tpu_torch.ops import bloom_cuda as b5
     from blackstar_tpu_torch.ops import march_cuda as b1
     from blackstar_tpu_torch.ops.filters import bloom
     from blackstar_tpu_torch.render import render
@@ -675,14 +685,15 @@ def _animation_phase(dev, grid32, card):
     ani_dir = os.path.join(ROOT, "build", "chip_smoke_ani")  # gitignored
     torch.cuda.empty_cache()
     try:
-        b1.march_cuda.launches = b3.star_lookup_cuda.launches = 0
+        b1.march_cuda.launches = b3.star_lookup_cuda.launches = b5.bloom_cuda.launches = 0
         geodesic.march.calls = StarGrid.lookup.calls = 0
         log = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             rc = cli_animate.main([ANIMATION, "--render", "-o", ani_dir, "-f"])
         ani_s = time.perf_counter() - t0
-        ani_launches = {"b1": b1.march_cuda.launches, "b3": b3.star_lookup_cuda.launches}
+        ani_launches = {"b1": b1.march_cuda.launches, "b3": b3.star_lookup_cuda.launches,
+                        "b5": b5.bloom_cuda.launches}
         ani_plain = {"march": geodesic.march.calls, "lookup": StarGrid.lookup.calls}
         text = log.getvalue().replace("\r", "\n")
         lines = [ln for ln in text.splitlines() if ln and not ln.startswith("Frame ")]
@@ -693,8 +704,9 @@ def _animation_phase(dev, grid32, card):
             raise AssertionError(f"animate CLI returned {rc}")
         if "PNG writer: native pool" not in text:
             raise AssertionError("the animation was not written by the native writer pool")
-        if ani_launches != {"b1": 375, "b3": 375} or max(ani_plain.values()) != 0:
-            raise AssertionError("the animation did not go through B1 and B3 alone, once a frame")
+        if ani_launches != {"b1": 375, "b3": 375, "b5": 375} or max(ani_plain.values()) != 0:
+            raise AssertionError("the animation did not go through B1, B3 and B5 alone, once a "
+                                 "frame")
         pngs = sorted(glob.glob(os.path.join(ani_dir, "default-ani_*.png")))
         if len(pngs) != 375:
             raise AssertionError(f"expected 375 frames, found {len(pngs)}")
@@ -815,6 +827,62 @@ def _scenes_phase(dev, grid32, card):
         del ker, s_ker, s_ref
         torch.cuda.empty_cache()
     return scene_launches
+
+
+def _bloom_phase(dev, grid32, card):
+    """Phase 20 (module docstring); returns B5's entry of the kernel table."""
+    from blackstar_tpu_torch.ops import bloom_cuda as b5
+    from blackstar_tpu_torch.ops.filters import box_blur
+    from blackstar_tpu_torch.render import render
+    from blackstar_tpu_torch.scripts import graph_ms
+
+    _banner("20. B5 bloom kernel vs the plain bloom in float64: the blur's three production "
+            "shapes, the 1920x1080 default frame; times on the graph clock")
+    budget = 1.5e-5  # tests/test_filters.py::test_box_blur_f32_precision_at_production_scale
+    rng = np.random.default_rng(0)
+    cases = [(f"random {h}x{w}, r {r}", torch.from_numpy(rng.uniform(0, 1.3, (h, w, 3))).to(dev),
+              1.0, r) for h, w, r in ((1080, 1920, 76), (32, 7680, 307), (4320, 64, 307))]
+    cfg = _scene(1920, 1080, "float32")
+    params, static = cfg.params(dev), cfg.static()
+    frame = render(params, static, grid32)
+    strength = params.bloom_strength.to(frame.dtype)
+    r = 1920 // static.bloom_divider
+    cases.append((f"default frame 1920x1080, r {r}", frame.double(), strength, r))
+    err = 0.0
+    for label, img, s, radius in cases:
+        want = img + float(s) * box_blur(img, radius, passes=3)
+        for dt, tol in ((torch.float32, budget), (torch.float64, 1e-12)):
+            got = b5.bloom_radius_cuda(img.to(dt), s.to(dt) if torch.is_tensor(s) else s, radius)
+            d = (got.double() - want).abs().max().item()
+            print(f"  {label}, {str(dt)[6:]}: max |d| {d:.3g} vs the float64 plain bloom "
+                  f"(limit {tol:g})")
+            if not d <= tol:
+                raise AssertionError(f"B5 at {label} in {dt} misses the plain bloom by {d:.3g}")
+            if dt == torch.float32:
+                err = max(err, d)
+    del cases, want, got
+
+    before = b5.bloom_cuda.launches
+    with _sync_error():
+        b5.bloom_cuda(frame, strength, static.bloom_divider)
+    if b5.bloom_cuda.launches != before + 1:
+        raise AssertionError("one bloom did not count one B5 launch")
+    print("  B5's wrapper ran under sync-debug mode 'error': it never waited for the card; "
+          "one bloom, one launch")
+
+    kernel = lambda: b5.bloom_cuda(frame, strength, static.bloom_divider)  # noqa: E731
+    plain = lambda: frame + strength * box_blur(frame, r, passes=3)  # noqa: E731
+    kernel_ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 20)
+    wrapper_ms = _cuda_ms(kernel, 50)
+    bound = _bound(2 * frame.numel() * frame.element_size(), 0)
+    rows, cols = b5.plan(1080, 1920, 4, b5.smem_limit(dev.index))
+    print(f"  B5 at 1920x1080x3 float32, r {r} (graph clock): {kernel_ms:.4f} ms (both launches), "
+          f"bound {bound[0]:.4f} ms by {bound[1]} (share {bound[0] / kernel_ms:.3f}); plain bloom "
+          f"{plain_ms:.4f} ms; wrapper {wrapper_ms:.4f} ms a host call  [{card}]")
+    print(f"  plan: rows {rows}, columns {cols}")
+    return {"name": "bloom (B5)", "route": "cuda", "source": "blackstar_tpu_torch/ops/csrc/bloom.cu",
+            "replaces": None, "max_abs_err": err, "ms": wrapper_ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
 def _star_build_phase(grid_path):
@@ -1058,9 +1126,10 @@ def main():
     from blackstar_tpu_torch.fit import image_loss, init_train_state, make_train_step
     from blackstar_tpu_torch.geodesic import ESCAPED
     from blackstar_tpu_torch.imageio import encode_rgb8, read_png, write_png
+    from blackstar_tpu_torch.ops import bloom_cuda as b5
     from blackstar_tpu_torch.ops import march_adjoint_cuda as b2
     from blackstar_tpu_torch.ops import march_cuda as b1
-    from blackstar_tpu_torch.ops.filters import bloom
+    from blackstar_tpu_torch.ops.filters import box_blur
     from blackstar_tpu_torch.ops.march_vjp import (march_adjoint_from_checkpoints,
                                                    march_adjoint_reference)
     from blackstar_tpu_torch.parallel.mesh import Mesh
@@ -1090,12 +1159,12 @@ def main():
     _banner("2. build")
     t0 = time.perf_counter()
     jobs = {"B1 march": b1.build, "B2 march adjoint": b2.build,
-            "B3 star lookup + B4 star VJP": b3.build, "K1 + K2 windowed stage": wk.build,
-            "gather probe": probe.build}
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 3) as pool:
+            "B3 star lookup + B4 star VJP": b3.build, "B5 bloom": b5.build,
+            "K1 + K2 windowed stage": wk.build, "gather probe": probe.build}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 4) as pool:
         futures = [pool.submit(fn) for fn in jobs.values()]
         cubins = {m: pool.submit(kernel_sass.compile_cubin, m.SOURCE, m.FLAGS)
-                  for m in (b1, b2, b3)}
+                  for m in (b1, b2, b3, b5)}
         for fut in futures:
             fut.result()
         ptxas = {m: kernel_sass.resources(fut.result()[0]) for m, fut in cubins.items()}
@@ -1158,6 +1227,7 @@ def main():
     _banner("5. slice: render CLI, scenes/default.yaml 1920x1080 float32")
     b1.march_cuda.launches = 0
     b3.star_lookup_cuda.launches = 0
+    b5.bloom_cuda.launches = 0
     geodesic.march.calls = 0
     StarGrid.lookup.calls = 0
     out_dir = os.path.join(ROOT, "build", "chip_smoke")  # gitignored
@@ -1169,15 +1239,18 @@ def main():
             rc = cli_render.main([os.path.join("scenes", "default.yaml"), "-o", out_dir,
                                   "--force", "--stats"])
         cli_s = time.perf_counter() - t0
-        launches = {"b1": b1.march_cuda.launches, "b3": b3.star_lookup_cuda.launches}
+        launches = {"b1": b1.march_cuda.launches, "b3": b3.star_lookup_cuda.launches,
+                    "b5": b5.bloom_cuda.launches}
         plain_calls = {"march": geodesic.march.calls, "lookup": StarGrid.lookup.calls}
         print("  | " + log.getvalue().strip().replace("\n", "\n  | "))
         print(f"  CLI run {cli_s:.1f} s (cold: includes loading the star tables), rc {rc}, "
               f"kernel launches {launches}, plain calls {plain_calls}")
         if rc != 0:
             raise AssertionError(f"render CLI returned {rc}")
-        if min(launches.values()) < 1 or max(plain_calls.values()) != 0:
-            raise AssertionError("the render did not go through both kernels alone")
+        if (min(launches.values()) < 1 or launches["b5"] != 1
+                or max(plain_calls.values()) != 0):
+            raise AssertionError("the render did not go through the kernels alone, bloom through "
+                                 "B5 once")
         m = re.search(r"truncated=(\S+)", log.getvalue())
         if m is None or float(m.group(1)) != 0.0:
             raise AssertionError(f"truncated rays in the render: {m and m.group(1)}")
@@ -1281,14 +1354,15 @@ def main():
         print(f"    ptxas -v, {name}: {line}")
 
     def plain_frame():
-        """The same frame through the plain march and plain lookup."""
+        """The same frame through the plain march, lookup and bloom."""
         p0, pl = generate_ray_components(params.camera, 1920, 1080, dtype=dt)
         res = geodesic.march(p0, torch.stack(pl, dim=-1), params, static,
                              safe_distance(params, dt))
         esc = res.status == ESCAPED
         star = grid32.lookup(res.vel, inten, sat, esc)
         rgb = res.acc_rgba[:, :3] + torch.where(esc[:, None], star, 0.0) * (1.0 - res.acc_rgba[:, 3:4])
-        out = bloom(rgb.reshape(1080, 1920, 3), params.bloom_strength, static.bloom_divider)
+        img = rgb.reshape(1080, 1920, 3)
+        out = img + params.bloom_strength * box_blur(img, 1920 // static.bloom_divider, passes=3)
         return out.cpu().numpy()
 
     plain_img = plain_frame()
@@ -1821,6 +1895,10 @@ def main():
                                          for p, leaf, a, b in gate["failures"]))
     del grid64
 
+    # ---- 20. the bloom kernel B5 -----------------------------------------
+    b5_entry = _bloom_phase(dev, grid32, card)
+    b5_entry.update(launches_render=launches["b5"], launches_animation=ani_launches["b5"])
+
     # ---- results -------------------------------------------------------
     kernels = [
         {"name": "march (B1)", "route": "cuda",
@@ -1877,6 +1955,7 @@ def main():
          "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms,
          "graph_ms": k2_graph_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+        b5_entry,
         *probe_entries,
     ]
     print()

@@ -32,3 +32,4 @@ def pytest_configure(config):
         "markers",
         "slow: too slow for tier-1, which runs -m 'not slow'; a plain `pytest tests/` runs it",
     )
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
