@@ -53,6 +53,37 @@ def n_segments(max_steps: int) -> int:
     return max(1, -(-max_steps // SEG_LEN))
 
 
+class StepScalars(NamedTuple):
+    """The step size and the products of it that the step and its VJP use,
+    each rounded once in the march's dtype on the host (Python floats that
+    the dtype represents exactly), as the kernels receive them."""
+
+    h: float
+    hh: float  # h / 2
+    h6: float  # h / 6
+    hh6: float  # h·h / 6
+    h_hh: float  # h · (h/2)
+    hh_hh: float  # (h/2)²
+
+
+def step_scalars(step_size: float, dtype: torch.dtype) -> StepScalars:
+    h = torch.tensor(step_size, dtype=dtype)
+    hh = h / 2
+    return StepScalars(*(float(v) for v in (h, hh, h / 6, h * h / 6.0, h * hh, hh * hh)))
+
+
+def scene_scalars(dtype: torch.dtype, mass, safe, inner, outer, opacity, disk_rgb,
+                  pos0) -> list:
+    """The march kernels' scene scalars as host floats in the march's
+    dtype, in the order of their C interfaces: mass, safe distance, disk
+    inner and outer radius, opacity, disk RGB (3,), camera position (3,).
+    They cross to the host in one copy (one sync)."""
+    return torch.cat([
+        torch.stack([t.to(dtype) for t in (mass, safe, inner, outer, opacity)]),
+        disk_rgb.to(dtype), pos0.to(dtype),
+    ]).tolist()
+
+
 class MarchResult(NamedTuple):
     acc_rgba: torch.Tensor  # (N, 4) front-to-back accumulated disk colour
     vel: torch.Tensor  # (N, 3) frozen velocity (escape direction for ESCAPED)

@@ -5,11 +5,11 @@ zlib PNG writing and an asynchronous frame-writer pool whose threads
 compress and write frames while the card renders the next ones. The C++
 source has no framework in it; the JAX package binds the same file.
 
-The port builds its own copy with ``g++ -lz`` at first use, into ``build/``
-at the repository root, under a name that carries a hash of the source and
-of the flags (as ``ops/_build.py`` names the kernels), so the two packages
-never share a build product and an edited source rebuilds. Nothing is built
-or loaded at import. Without ``g++`` or ``zlib.h`` the library is
+The port builds its own copy with ``g++ -lz`` at first use, through
+``ops/_build.py`` as it builds the kernels: into ``build/`` at the
+repository root, under a name that carries a hash of the source and of the
+flags, so the two packages never share a build product and an edited
+source rebuilds. Nothing is built or loaded at import. Without ``g++`` or ``zlib.h`` the library is
 unavailable: :func:`available` is False and :data:`load_error` says why;
 :func:`blackstar_tpu_torch.imageio.write_png` then writes through its
 pure-Python encoder.
@@ -18,22 +18,32 @@ pure-Python encoder.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
 import subprocess
-import tempfile
 from typing import Optional
 
 import numpy as np
 
-from blackstar_tpu_torch.ops._build import BUILD_DIR
+from blackstar_tpu_torch.ops import _build
+from blackstar_tpu_torch.ops._build import I, L, P
 
 SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
     "blackstar_native.cpp")
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
-LD_FLAGS = ("-lz", "-pthread")
+FLAGS = ("-lz", "-pthread")  # linked after the source
+
+_U8P, _F32P, _STR = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float), ctypes.c_char_p
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    name: _build.Entry(args, returns, stream=False) for name, args, returns in (
+        ("bs_srgb_encode", (_F32P, _U8P, L, I), None),
+        ("bs_write_png_rgb8", (_STR, _U8P, I, I, I), I),
+        ("bs_write_png_linear", (_STR, _F32P, I, I, I, I), I),
+        ("bs_writer_create", (I,), P),
+        ("bs_writer_submit", (P, _STR, _F32P, I, I, I), None),
+        ("bs_writer_submit_rgb8", (P, _STR, _U8P, I, I, I), None),
+        ("bs_writer_wait", (P,), I),
+        ("bs_writer_destroy", (P,), None))
+})
 
 _lib = None
 _tried = False
@@ -42,53 +52,7 @@ load_error: Optional[str] = None  # why the library is unavailable, once a load 
 
 def library_path() -> str:
     """Where the library built from :data:`SOURCE` with these flags lives."""
-    key = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        key.update(f.read())
-    key.update(repr(CXX_FLAGS + LD_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libblackstar_native-{key.hexdigest()[:16]}.so")
-
-
-def _compile(path: str) -> None:
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on PATH")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build into a temporary name and rename: a concurrent or cut-off build
-    # never leaves a truncated library at the final path.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [cxx, *CXX_FLAGS, SOURCE, "-o", tmp, *LD_FLAGS]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    u8p, f32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
-    c_int = ctypes.c_int
-    lib.bs_write_png_rgb8.argtypes = [ctypes.c_char_p, u8p, c_int, c_int, c_int]
-    lib.bs_write_png_rgb8.restype = c_int
-    lib.bs_write_png_linear.argtypes = [ctypes.c_char_p, f32p, c_int, c_int, c_int, c_int]
-    lib.bs_write_png_linear.restype = c_int
-    lib.bs_writer_create.argtypes = [c_int]
-    lib.bs_writer_create.restype = ctypes.c_void_p
-    lib.bs_writer_submit.argtypes = [ctypes.c_void_p, ctypes.c_char_p, f32p, c_int, c_int, c_int]
-    lib.bs_writer_submit.restype = None
-    lib.bs_writer_submit_rgb8.argtypes = [ctypes.c_void_p, ctypes.c_char_p, u8p, c_int, c_int,
-                                          c_int]
-    lib.bs_writer_submit_rgb8.restype = None
-    lib.bs_writer_wait.argtypes = [ctypes.c_void_p]
-    lib.bs_writer_wait.restype = c_int
-    lib.bs_writer_destroy.argtypes = [ctypes.c_void_p]
-    lib.bs_writer_destroy.restype = None
-    return lib
+    return LIBRARY.path
 
 
 def load():
@@ -100,10 +64,7 @@ def load():
         return _lib
     _tried = True
     try:
-        path = library_path()
-        if not os.path.exists(path):
-            _compile(path)
-        _lib = _bind(ctypes.CDLL(path))
+        _lib = LIBRARY.load()
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         load_error = str(e)
     return _lib

@@ -16,7 +16,6 @@ compares renders before bloom).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
 from typing import NamedTuple
@@ -24,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from blackstar_tpu_torch.ops import _build, filters
+from blackstar_tpu_torch.ops._build import D, I, L, P
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "bloom.cu")
 FLAGS = ()
@@ -34,9 +34,10 @@ THREADS = 256  # kThreads in the source
 ROW_WIDTHS = (3, 1)
 COL_WIDTHS = (8, 4, 2, 1)
 
-_P, _D, _I, _L = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
-_ARGTYPES = [_P, _P, _P, _L, _L, _L, _P, _D, _I, _I, _P, _I, _I, _P, _P]
-_ENTRY = {torch.float32: "bs_bloom_f32", torch.float64: "bs_bloom_f64"}
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    "bs_bloom": _build.Entry((P, P, P, L, L, L, P, D, I, I, P, I, I, P, P), dtyped=True),
+    "bs_bloom_smem_limit": _build.Entry((I,), stream=False),
+})
 
 
 class Pass(NamedTuple):
@@ -55,22 +56,9 @@ class Pass(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (at first use) and load the kernel library."""
-    lib = _build.load(SOURCE, FLAGS)
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.bs_bloom_smem_limit.argtypes = [_I]
-    lib.bs_bloom_smem_limit.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def smem_limit(device_index: int) -> int:
     """The most dynamic shared memory a block may take on the device."""
-    v = build().bs_bloom_smem_limit(device_index)
+    v = LIBRARY.entry("bs_bloom_smem_limit")(device_index)
     if v <= 0:
         raise RuntimeError(f"bloom kernel: cannot read the shared memory limit of cuda:{device_index}")
     return v
@@ -138,7 +126,7 @@ def bloom_radius_cuda(img: torch.Tensor, strength, r: int) -> torch.Tensor:
         raise ValueError("bloom_cuda: the bloom kernel is forward only; the input requires grad")
     if img.dim() != 3 or img.shape[2] != 3:
         raise ValueError(f"bloom_cuda: expected an (H, W, 3) image, got {tuple(img.shape)}")
-    if img.dtype not in _ENTRY:
+    if img.dtype not in _build.DTYPES:
         raise ValueError(f"bloom_cuda: unsupported dtype {img.dtype}")
     if img.numel() >= 2**31:
         raise ValueError(f"bloom_cuda: image of {img.numel()} elements is too large")
@@ -152,12 +140,11 @@ def bloom_radius_cuda(img: torch.Tensor, strength, r: int) -> torch.Tensor:
     scratch = [torch.empty((p.scratch,), dtype=img.dtype, device=dev) if p.scratch else None
                for p in (rows, cols)]
     s_ptr, s_val, _keep = _strength(strength, img.dtype, dev)
-    fn = getattr(build(), _ENTRY[img.dtype])
-    code = fn(img.data_ptr(), tmp.data_ptr(), out.data_ptr(), h, w, max(int(r), 0), s_ptr, s_val,
-              rows.wc, rows.seg, 0 if scratch[0] is None else scratch[0].data_ptr(),
-              cols.wc, cols.seg, 0 if scratch[1] is None else scratch[1].data_ptr(),
-              _build.stream_handle(dev))
-    _build.check(code, "bloom kernel")
+    LIBRARY.call("bs_bloom", img.data_ptr(), tmp.data_ptr(), out.data_ptr(), h, w,
+                 max(int(r), 0), s_ptr, s_val,
+                 rows.wc, rows.seg, 0 if scratch[0] is None else scratch[0].data_ptr(),
+                 cols.wc, cols.seg, 0 if scratch[1] is None else scratch[1].data_ptr(),
+                 dtype=img.dtype, device=dev)
     bloom_cuda.launches += 1
     return out
 

@@ -16,18 +16,17 @@ else. It never falls back from the kernel to the plain version.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import os
 from typing import Optional
 
 import torch
 
 from blackstar_tpu_torch.config import StaticConfig
-from blackstar_tpu_torch.geodesic import CKPT_VALUES, n_segments
+from blackstar_tpu_torch.geodesic import CKPT_VALUES, n_segments, scene_scalars, step_scalars
 from blackstar_tpu_torch.ops import _build
+from blackstar_tpu_torch.ops._build import D, I, L, P
 from blackstar_tpu_torch.ops.march_vjp import (AdjointGrads, march_adjoint_from_checkpoints,
-                                               march_adjoint_reference, step_scalars)
+                                               march_adjoint_reference)
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "march_adjoint.cu")
 # No multiply-add contraction, as the forward kernel B1: the replay takes
@@ -37,20 +36,10 @@ FLAGS = ("-fmad=false",)
 THREADS = 128  # kThreads in the source: one block's rays, one row of partials
 N_PARTIALS = 10
 
-_P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [ctypes.c_int64] + [_D] * 17 + [_I, _I] + [_P] * 4
-_ENTRY = {torch.float32: "bs_march_adjoint_f32", torch.float64: "bs_march_adjoint_f64"}
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (at first use) and load the kernel library."""
-    lib = _build.load(SOURCE, FLAGS)
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    "bs_march_adjoint": _build.Entry((P,) * 6 + (L,) + (D,) * 17 + (I, I) + (P,) * 4,
+                                     dtyped=True),
+})
 
 
 def march_adjoint_cuda(pos0: torch.Tensor, vel0, cot_acc: torch.Tensor,
@@ -109,22 +98,15 @@ def march_adjoint_cuda(pos0: torch.Tensor, vel0, cot_acc: torch.Tensor,
         return AdjointGrads(pos0=torch.zeros(3, dtype=dt, device=dev), vel0=gvel.t(),
                             mass=zero, inner=zero, outer=zero, opacity=zero,
                             disk_rgb=torch.zeros(3, dtype=dt, device=dev), status=status)
-    lib = build()
     blocks = -(-n // THREADS)
     partials = torch.empty((blocks, N_PARTIALS), dtype=dt, device=dev)
 
     hs = step_scalars(static.step_size, dt)
-    # The scene scalars cross to the host in one copy (one sync).
-    scene = torch.cat([
-        torch.stack([t.to(dt) for t in (mass, safe, inner, outer, opacity)]),
-        disk_rgb.to(dt), pos0.to(dt),
-    ]).tolist()
-    fn = getattr(lib, _ENTRY[dt])
-    code = fn(*(p.data_ptr() for p in planes), cot.data_ptr(), checkpoints.data_ptr(),
-              ray_steps.data_ptr(), n, *hs, *scene, static.max_steps, int(static.disk_on),
-              gvel.data_ptr(), status.data_ptr(), partials.data_ptr(),
-              _build.stream_handle(dev))
-    _build.check(code, "march adjoint kernel")
+    scene = scene_scalars(dt, mass, safe, inner, outer, opacity, disk_rgb, pos0)
+    LIBRARY.call("bs_march_adjoint", *(p.data_ptr() for p in planes), cot.data_ptr(),
+                 checkpoints.data_ptr(), ray_steps.data_ptr(), n, *hs, *scene,
+                 static.max_steps, int(static.disk_on), gvel.data_ptr(), status.data_ptr(),
+                 partials.data_ptr(), dtype=dt, device=dev)
     march_adjoint_cuda.launches += 1
     part = partials.sum(dim=0)
     return AdjointGrads(pos0=part[7:10], vel0=gvel.t(), mass=part[0], inner=part[1],

@@ -12,8 +12,6 @@ falls back from the kernel to the plain version.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import os
 from typing import Optional
 
@@ -21,8 +19,10 @@ import torch
 
 from blackstar_tpu_torch.color import hsi_to_rgb
 from blackstar_tpu_torch.config import SceneParams, StaticConfig
-from blackstar_tpu_torch.geodesic import CKPT_VALUES, MarchResult, march, n_segments
+from blackstar_tpu_torch.geodesic import (CKPT_VALUES, MarchResult, march, n_segments,
+                                         scene_scalars, step_scalars)
 from blackstar_tpu_torch.ops import _build
+from blackstar_tpu_torch.ops._build import D, I, L, P
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "march.cu")
 # No multiply-add contraction: the step fuses only where march_step.cuh
@@ -30,21 +30,9 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "march
 # alike; see the source's header.
 FLAGS = ("-fmad=false",)
 
-_P, _D = ctypes.c_void_p, ctypes.c_double
-_ARGTYPES = ([_P, _P, _P, ctypes.c_int64] + [_D] * 14
-             + [ctypes.c_int, ctypes.c_int] + [_P] * 6)
-_ENTRY = {torch.float32: "bs_march_f32", torch.float64: "bs_march_f64"}
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (at first use) and load the kernel library."""
-    lib = _build.load(SOURCE, FLAGS)
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    "bs_march": _build.Entry((P, P, P, L) + (D,) * 14 + (I, I) + (P,) * 6, dtyped=True),
+})
 
 
 def march_cuda(pos0: torch.Tensor, vel0, params: SceneParams,
@@ -93,25 +81,17 @@ def march_cuda(pos0: torch.Tensor, vel0, params: SceneParams,
                             (n_segments(static.max_steps), CKPT_VALUES, n), dt, dev)
     if n:
         disk = params.disk
-        # The step and its half and sixth, evaluated on the host exactly as
-        # the plain march evaluates them.
-        h = torch.tensor(static.step_size, dtype=dt)
-        # The scene scalars cross to the host in one copy (one sync).
-        scene = torch.cat([
-            torch.stack([params.mass.to(dt), safe_distance.to(dt), disk.inner.to(dt),
-                         disk.outer.to(dt), disk.opacity.to(dt)]),
-            hsi_to_rgb(disk.color_hsi.to(dt)),
-            pos0.to(dt),
-        ]).tolist()
-        scalars = [h.item(), (h / 2).item(), (h / 6).item(), *scene]
-        fn = getattr(build(), _ENTRY[dt])
-        code = fn(*(p.data_ptr() for p in planes), n, *scalars,
-                  static.max_steps, int(static.disk_on),
-                  out.data_ptr(), status.data_ptr(), steps.data_ptr(),
-                  0 if ray_steps is None else ray_steps.data_ptr(),
-                  0 if checkpoints is None else checkpoints.data_ptr(),
-                  _build.stream_handle(dev))
-        _build.check(code, "march kernel")
+        # The step and its half and sixth, rounded on the host exactly as
+        # the plain march rounds them.
+        hs = step_scalars(static.step_size, dt)
+        scene = scene_scalars(dt, params.mass, safe_distance, disk.inner, disk.outer,
+                              disk.opacity, hsi_to_rgb(disk.color_hsi.to(dt)), pos0)
+        LIBRARY.call("bs_march", *(p.data_ptr() for p in planes), n, *hs[:3], *scene,
+                     static.max_steps, int(static.disk_on),
+                     out.data_ptr(), status.data_ptr(), steps.data_ptr(),
+                     0 if ray_steps is None else ray_steps.data_ptr(),
+                     0 if checkpoints is None else checkpoints.data_ptr(),
+                     dtype=dt, device=dev)
         march_cuda.launches += 1
     return MarchResult(acc_rgba=out[3:7].t(), vel=out[0:3].t(), status=status,
                        steps=steps[0])

@@ -31,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from blackstar_tpu_torch.geodesic import ACTIVE, ESCAPED, HORIZON, SEG_LEN
+from blackstar_tpu_torch.geodesic import (ACTIVE, ESCAPED, HORIZON, SEG_LEN, StepScalars,
+                                         step_scalars)
 
 
 class Dot3(NamedTuple):
@@ -47,25 +48,6 @@ class Dot3(NamedTuple):
 
     def dot(self, o):
         return self.x * o.x + self.y * o.y + self.z * o.z
-
-
-class StepScalars(NamedTuple):
-    """The step size and the products of it that the step and its VJP use,
-    each rounded once in the march's dtype on the host (Python floats that
-    the dtype represents exactly), as the kernels receive them."""
-
-    h: float
-    hh: float  # h / 2
-    h6: float  # h / 6
-    hh6: float  # h·h / 6
-    h_hh: float  # h · (h/2)
-    hh_hh: float  # (h/2)²
-
-
-def step_scalars(step_size: float, dtype: torch.dtype) -> StepScalars:
-    h = torch.tensor(step_size, dtype=dtype)
-    hh = h / 2
-    return StepScalars(*(float(v) for v in (h, hh, h / 6, h * h / 6.0, h * hh, hh * hh)))
 
 
 def _accel(p: Dot3, coef):

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from blackstar_tpu_torch.ops import _build
+from blackstar_tpu_torch.ops._build import I, P
 from blackstar_tpu_torch.scripts import cuda_ms, graph_ms
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -74,31 +75,22 @@ REPS = 300  # calls per timing on the card
 # bound printed beside each size.
 PEAK_BYTES_S = 3.35e12
 
-_P, _I, _PI = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (at first use) and load the kernel library built from
-    :data:`SOURCE`."""
-    lib = _build.load(SOURCE, FLAGS)
-    for name, argtypes in (("bs_row_gather_f32", [_P, _P, _I, _I, _P, _P]),
-                           ("bs_lane_gather_f32", [_P, _P, _I, _I, _P, _P]),
-                           ("bs_range_copy_f32", [_P, _P, _I, _I, _I, _P, _P]),
-                           ("bs_probe_dims", [_I, _I, _PI, _PI]),
-                           ("bs_empty", [_I, _I, _P])):
-        fn = getattr(lib, name, None)  # a build of the first design lacks the last two
-        if fn is not None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+_PI = ctypes.POINTER(ctypes.c_int)
+# A build of the first design lacks the last two entries.
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    "bs_row_gather_f32": _build.Entry((P, P, I, I, P, P)),
+    "bs_lane_gather_f32": _build.Entry((P, P, I, I, P, P)),
+    "bs_range_copy_f32": _build.Entry((P, P, I, I, I, P, P)),
+    "bs_probe_dims": _build.Entry((I, I, _PI, _PI), stream=False, optional=True),
+    "bs_empty": _build.Entry((I, I, P), optional=True),
+})
 
 
 def launch_dims(which: int, rows: int):
     """``(grid, block)`` the kernel ``which`` (:data:`ROW_GATHER`,
     :data:`LANE_GATHER`, :data:`RANGE_COPY`) is launched with for ``rows``
     rows, or None for a build without the query."""
-    fn = getattr(build(), "bs_probe_dims", None)
+    fn = LIBRARY.entry("bs_probe_dims")
     if fn is None:
         return None
     grid, block = ctypes.c_int(), ctypes.c_int()
@@ -109,7 +101,7 @@ def launch_dims(which: int, rows: int):
 def empty_cuda(grid: int, block: int, device) -> None:
     """Launch the empty kernel with ``grid`` blocks of ``block`` threads on
     ``device``'s current stream: a launch and nothing else."""
-    _build.check(build().bs_empty(grid, block, _build.stream_handle(device)), "empty kernel")
+    LIBRARY.call("bs_empty", grid, block, device=device)
 
 
 def _on_card(what: str, tensors) -> bool:
@@ -151,9 +143,8 @@ def row_gather_cuda(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if tbl.data_ptr() % 16:
         raise ValueError("row_gather_cuda: tbl must start on 16 bytes")
     out = torch.empty((rows, cols), dtype=tbl.dtype, device=tbl.device)
-    _build.check(build().bs_row_gather_f32(tbl.data_ptr(), idx.data_ptr(), rows, cols,
-                                           out.data_ptr(), _build.stream_handle(tbl.device)),
-                 "row gather kernel")
+    LIBRARY.call("bs_row_gather_f32", tbl.data_ptr(), idx.data_ptr(), rows, cols,
+                 out.data_ptr(), device=tbl.device)
     row_gather_cuda.launches += 1
     return out
 
@@ -188,9 +179,8 @@ def lane_gather_cuda(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if tbl.data_ptr() % 16 or idx.data_ptr() % 16:
         raise ValueError("lane_gather_cuda: tbl and idx must start on 16 bytes")
     out = torch.empty_like(tbl)
-    _build.check(build().bs_lane_gather_f32(tbl.data_ptr(), idx.data_ptr(), rows, cols,
-                                            out.data_ptr(), _build.stream_handle(tbl.device)),
-                 "lane gather kernel")
+    LIBRARY.call("bs_lane_gather_f32", tbl.data_ptr(), idx.data_ptr(), rows, cols,
+                 out.data_ptr(), device=tbl.device)
     lane_gather_cuda.launches += 1
     return out
 
@@ -239,10 +229,8 @@ def range_copy_cuda(tbl: torch.Tensor, start: torch.Tensor, rows: int,
     if tbl.data_ptr() % 16:
         raise ValueError("range_copy_cuda: tbl must start on 16 bytes")
     out = torch.empty((rows, out_cols), dtype=tbl.dtype, device=tbl.device)
-    _build.check(build().bs_range_copy_f32(tbl.data_ptr(), start.data_ptr(), rows, cols,
-                                           out_cols, out.data_ptr(),
-                                           _build.stream_handle(tbl.device)),
-                 "range copy kernel")
+    LIBRARY.call("bs_range_copy_f32", tbl.data_ptr(), start.data_ptr(), rows, cols, out_cols,
+                 out.data_ptr(), device=tbl.device)
     range_copy_cuda.launches += 1
     return out
 
@@ -399,7 +387,7 @@ def run(device: torch.device, reps: int = REPS):
 
 
 def main(argv=None):
-    global SOURCE
+    global LIBRARY
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (plain versions)")
     ap.add_argument("--source", action="append", default=[],
@@ -411,14 +399,14 @@ def main(argv=None):
         raise RuntimeError("probe_dynamic_gather: no CUDA device (use --device cpu)")
     print("device:", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     sources = [os.path.abspath(s) for s in args.source] or [SOURCE]
-    package_source, totals = SOURCE, {}
+    package, totals = LIBRARY, {}
     # What is returned: the package's build's last run and its launch counts
     # where it is among the sources, else the last run and every count.
-    keep = package_source if package_source in sources else None
+    keep = SOURCE if SOURCE in sources else None
     try:
         for src in sources + sources[::-1] if len(sources) > 1 else sources:
-            SOURCE = src
-            build.cache_clear()
+            # The wrappers launch from a build of src through the same table.
+            LIBRARY = package if src == SOURCE else _build.Library(src, FLAGS, package.entries)
             if len(sources) > 1:
                 print(f"=== {os.path.relpath(src)} ===")
             results, path = run(device)
@@ -427,8 +415,7 @@ def main(argv=None):
                 for k, v in path.items():
                     totals[k] = totals.get(k, 0) + v
     finally:
-        SOURCE = package_source
-        build.cache_clear()
+        LIBRARY = package
     print(f"kernel runs: {totals}")
     return kept, totals
 

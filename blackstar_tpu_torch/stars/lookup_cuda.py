@@ -20,8 +20,6 @@ there.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 import os
 from typing import Optional
@@ -29,6 +27,7 @@ from typing import Optional
 import torch
 
 from blackstar_tpu_torch.ops import _build
+from blackstar_tpu_torch.ops._build import D, I, L, P
 from blackstar_tpu_torch.stars.grid import StarGrid
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "star_lookup.cu")
@@ -36,28 +35,15 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "star_
 # version's does (the PSF is sensitive to it; see the source's header).
 FLAGS = ("-fmad=false",)
 
-_P, _D, _I, _L = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
 # Rays, their count and the width hint, then the grid (tables, the 0-d
 # intensity and saturation on the card, constants, sizes).
-_GRID_ARGTYPES = [_P] * 5 + [_D] * 4 + [_I] * 5
-_ARGTYPES = [_P] * 4 + [_L, _I] + _GRID_ARGTYPES + [_I, _P, _P]
-_VJP_ARGTYPES = [_P] * 5 + [_L, _I] + _GRID_ARGTYPES + [_P, _P, _P]
-_ENTRY = {torch.float32: "bs_star_lookup_f32", torch.float64: "bs_star_lookup_f64"}
-_VJP_ENTRY = {torch.float32: "bs_star_vjp_f32", torch.float64: "bs_star_vjp_f64"}
+_GRID = (P,) * 5 + (D,) * 4 + (I,) * 5
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    "bs_star_lookup": _build.Entry((P,) * 4 + (L, I) + _GRID + (I, P, P), dtyped=True),
+    "bs_star_vjp": _build.Entry((P,) * 5 + (L, I) + _GRID + (P, P, P), dtyped=True),
+})
 THREADS = 128  # threads per block (kThreads in star_walk.cuh): 4 warps
 WARP_TILE = (8, 4)  # the pixels a warp takes with the width hint (kTileW x kTileH)
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (at first use) and load the kernel library."""
-    lib = _build.load(SOURCE, FLAGS)
-    for entries, argtypes in ((_ENTRY, _ARGTYPES), (_VJP_ENTRY, _VJP_ARGTYPES)):
-        for name in entries.values():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
 
 
 def launch_shape(n: int, width: Optional[int] = None):
@@ -154,11 +140,8 @@ def star_lookup_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Tensor,
     out = torch.empty((3, n), dtype=dt, device=dev)  # the kernel writes every element
     args, _shading = _grid_args(grid, dt, dev, intensity, saturation, "star_lookup_cuda")
     hint, _ = launch_shape(n, width)
-    fn = getattr(build(), _ENTRY[dt])
-    code = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-              active.data_ptr(), n, hint, *args, int(clamp), out.data_ptr(),
-              _build.stream_handle(dev))
-    _build.check(code, "star lookup kernel")
+    LIBRARY.call("bs_star_lookup", *(p.data_ptr() for p in planes), active.data_ptr(), n,
+                 hint, *args, int(clamp), out.data_ptr(), dtype=dt, device=dev)
     star_lookup_cuda.launches += 1
     return out.t()
 
@@ -193,11 +176,9 @@ def star_lookup_vjp_cuda(grid: StarGrid, vel: torch.Tensor, intensity: torch.Ten
     hint, blocks = launch_shape(n, width)
     partials = torch.empty((blocks, 2), dtype=dt, device=dev)
     args, _shading = _grid_args(grid, dt, dev, intensity, saturation, "star_lookup_vjp_cuda")
-    fn = getattr(build(), _VJP_ENTRY[dt])
-    code = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-              active.data_ptr(), wp.data_ptr(), n, hint, *args,
-              gvel.data_ptr(), partials.data_ptr(), _build.stream_handle(dev))
-    _build.check(code, "star VJP kernel")
+    LIBRARY.call("bs_star_vjp", *(p.data_ptr() for p in planes), active.data_ptr(),
+                 wp.data_ptr(), n, hint, *args, gvel.data_ptr(), partials.data_ptr(),
+                 dtype=dt, device=dev)
     star_lookup_vjp_cuda.launches += 1
     g = partials.sum(dim=0)
     return gvel.t(), g[0], g[1]

@@ -14,13 +14,12 @@ back from the kernel to the plain version.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import os
 
 import torch
 
 from blackstar_tpu_torch.ops import _build
+from blackstar_tpu_torch.ops._build import D, I, L, P
 from blackstar_tpu_torch.stars import window
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "star_window.cu")
@@ -28,23 +27,12 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "star_
 # version's does (the PSF is sensitive to it; see the source's header).
 FLAGS = ("-fmad=false",)
 
-_P, _D, _I, _L = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int64
-_K1_ARGTYPES = [_P] * 6 + [_L, _I, _I, _P, _I, _I] + [_D] * 5 + [_P, _P, _P]
-_K2_ARGTYPES = [_P] * 6 + [_L, _I, _I, _P, _L, _P] + [_D] * 5 + [_P, _P]
-_K1_ENTRY = {torch.float32: "bs_window_k1_f32", torch.float64: "bs_window_k1_f64"}
-_K2_ENTRY = {torch.float32: "bs_window_k2_f32", torch.float64: "bs_window_k2_f64"}
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> ctypes.CDLL:
-    """Compile (at first use) and load the kernel library."""
-    lib = _build.load(SOURCE, FLAGS)
-    for entries, argtypes in ((_K1_ENTRY, _K1_ARGTYPES), (_K2_ENTRY, _K2_ARGTYPES)):
-        for name in entries.values():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+LIBRARY = _build.Library(SOURCE, FLAGS, {
+    "bs_window_k1": _build.Entry((P,) * 6 + (L, I, I, P, I, I) + (D,) * 5 + (P, P, P),
+                                 dtyped=True),
+    "bs_window_k2": _build.Entry((P,) * 6 + (L, I, I, P, L, P) + (D,) * 5 + (P, P),
+                                 dtyped=True),
+})
 
 
 def _device(what: str, rx: torch.Tensor) -> str:
@@ -58,7 +46,7 @@ def _check_rays(what, n_tiles, covered, rx, ry, rz, ints):
     """Validate the per-ray and per-tile arguments of a launch."""
     n = rx.shape[0]
     dev, dt = rx.device, rx.dtype
-    if dt not in _K1_ENTRY:
+    if dt not in _build.DTYPES:
         raise ValueError(f"{what}: unsupported dtype {dt}")
     if n != n_tiles * window.T:
         raise ValueError(f"{what}: {n} rays for {n_tiles} tiles of {window.T}")
@@ -96,12 +84,11 @@ def k1_cuda(starts, widx, covered, rx, ry, rz, tbl3, consts, intensity, saturati
         raise ValueError(f"k1_cuda: base table {tuple(tbl3.shape)} does not hold a window")
     out = torch.empty((3, n), dtype=dt, device=dev)  # the kernel writes every element
     optr = torch.empty((n,), dtype=torch.int32, device=dev)
-    code = getattr(build(), _K1_ENTRY[dt])(
-        starts.data_ptr(), widx.data_ptr(), covered.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-        rz.data_ptr(), n, window.T, window.DC, tbl3.data_ptr(), nc, width // window.ROW,
-        intensity, saturation, *consts, out.data_ptr(), optr.data_ptr(),
-        _build.stream_handle(dev))
-    _build.check(code, "window K1 kernel")
+    LIBRARY.call(
+        "bs_window_k1", starts.data_ptr(), widx.data_ptr(), covered.data_ptr(), rx.data_ptr(),
+        ry.data_ptr(), rz.data_ptr(), n, window.T, window.DC, tbl3.data_ptr(), nc,
+        width // window.ROW, intensity, saturation, *consts, out.data_ptr(), optr.data_ptr(),
+        dtype=dt, device=dev)
     k1_cuda.launches += 1
     return out[0], out[1], out[2], optr
 
@@ -125,12 +112,11 @@ def k2_cuda(s2, optr, covered, rx, ry, rz, ovf_tbl, octets, consts, intensity, s
     if ovf_tbl.dim() != 2 or octets.shape != (ovf_tbl.shape[0],):
         raise ValueError("k2_cuda: the overflow table must be (rows, width) with (rows,) octets")
     out = torch.empty((3, n), dtype=dt, device=dev)
-    code = getattr(build(), _K2_ENTRY[dt])(
-        s2.data_ptr(), optr.data_ptr(), covered.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-        rz.data_ptr(), n, window.T, window.OVW, ovf_tbl.data_ptr(), ovf_tbl.shape[1],
-        octets.data_ptr(), intensity, saturation, *consts, out.data_ptr(),
-        _build.stream_handle(dev))
-    _build.check(code, "window K2 kernel")
+    LIBRARY.call(
+        "bs_window_k2", s2.data_ptr(), optr.data_ptr(), covered.data_ptr(), rx.data_ptr(),
+        ry.data_ptr(), rz.data_ptr(), n, window.T, window.OVW, ovf_tbl.data_ptr(),
+        ovf_tbl.shape[1], octets.data_ptr(), intensity, saturation, *consts, out.data_ptr(),
+        dtype=dt, device=dev)
     k2_cuda.launches += 1
     return out[0], out[1], out[2]
 

@@ -144,13 +144,12 @@ def render_animation(
     preview: bool = False,
     device="cuda",
     sharded: bool = False,
-    writer_threads: int = WRITER_THREADS,
     progress: Optional[Callable[[int, int], None]] = None,
 ) -> List[str]:
     """Render every frame of ``anim`` to ``out_dir`` as PNGs; returns their
     paths in frame order.
 
-    Frames go to the native writer pool (``writer_threads`` threads) when
+    Frames go to the native writer pool (:data:`WRITER_THREADS` threads) when
     the library is available, else they are written one by one by
     ``imageio.write_png``. Raises if a frame failed to write, and if
     ``device`` is a CUDA device and none is present. With ``sharded``
@@ -164,7 +163,7 @@ def render_animation(
     n = anim.n_frames
     writer = None
     if not (sharded and torch.distributed.get_rank()) and native.available():
-        writer = native.AsyncFrameWriter(writer_threads)
+        writer = native.AsyncFrameWriter(WRITER_THREADS)
     paths = []
     try:
         for i, rgb8 in frames(anim, star_grid=star_grid, preview=preview, device=device,

@@ -107,12 +107,7 @@ phase exits non-zero):
    carry it, each launched once a frame (375 times) with no plain call, the
    native PNG writer pool must write it (the phase fails if the library
    does not build), and frames 0 and 374 must be within 1 on the uint8 scale
-   of direct renders at the keyframe cameras; then
-   ``scripts/bench_animation.py`` at full size: frames/s with the PNG
-   writes and with the frames dropped after their copy, the device's busy
-   time a frame and idle share and the host's waits (torch.profiler over a
-   few frames, taken before any plain-version gate of the later phases),
-   and the peak allocated memory;
+   of direct renders at the keyframe cameras;
 15. all nine reference scenes: in float64 through B1 and B3, at 16 px
    with a small star catalogue lit in each scene against
    ``tests/oracle.py`` computed now (one process a scene), and the three
@@ -657,7 +652,7 @@ def _oracle_scenes(dev):
     return out
 
 
-def _animation_phase(dev, grid32, card):
+def _animation_phase(dev, grid32):
     """Phase 14 (module docstring); returns B1's, B3's and B5's launches in
     the animate CLI's run."""
     from blackstar_tpu_torch import geodesic, native
@@ -668,7 +663,6 @@ def _animation_phase(dev, grid32, card):
     from blackstar_tpu_torch.ops import march_cuda as b1
     from blackstar_tpu_torch.ops.filters import bloom
     from blackstar_tpu_torch.render import render
-    from blackstar_tpu_torch.scripts import bench_animation
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.grid import StarGrid
     from blackstar_tpu_torch.video import animation_config
@@ -730,15 +724,6 @@ def _animation_phase(dev, grid32, card):
         del img
     finally:
         shutil.rmtree(ani_dir, ignore_errors=True)
-    ani = bench_animation.main(["--sizes", "full"])["sizes"]["full"]
-    waits = ani["host_wait_ms"]
-    print(f"  animation, 375 frames at 1920x1080 supersampled: {ani['fps_write']:.3f} frames/s "
-          f"with the PNG writes, {ani['fps_drop']:.3f} dropped after their copy (bound by "
-          f"{ani['bound_by']}); device busy {ani['busy_ms']:.3f} ms a frame of "
-          f"{ani['wall_ms']:.3f}, device idle share {ani['idle_share']:.4f}; the host blocked "
-          f"{waits['cudaStreamSynchronize']:.3f} ms a frame in B1's scalar read and "
-          f"{waits['cudaEventSynchronize']:.3f} ms waiting for copies; peak allocated "
-          f"{ani['peak_mib']:.0f} MiB ({ani['base_mib']:.0f} before the run)  [{card}]")
     torch.cuda.empty_cache()
     return ani_launches
 
@@ -1158,9 +1143,9 @@ def main():
     # B3's + B4's cubins with `-Xptxas -v`, for their registers, stack and spills.
     _banner("2. build")
     t0 = time.perf_counter()
-    jobs = {"B1 march": b1.build, "B2 march adjoint": b2.build,
-            "B3 star lookup + B4 star VJP": b3.build, "B5 bloom": b5.build,
-            "K1 + K2 windowed stage": wk.build, "gather probe": probe.build}
+    jobs = {"B1 march": b1.LIBRARY.load, "B2 march adjoint": b2.LIBRARY.load,
+            "B3 star lookup + B4 star VJP": b3.LIBRARY.load, "B5 bloom": b5.LIBRARY.load,
+            "K1 + K2 windowed stage": wk.LIBRARY.load, "gather probe": probe.LIBRARY.load}
     with concurrent.futures.ThreadPoolExecutor(len(jobs) + 4) as pool:
         futures = [pool.submit(fn) for fn in jobs.values()]
         cubins = {m: pool.submit(kernel_sass.compile_cubin, m.SOURCE, m.FLAGS)
@@ -1863,7 +1848,7 @@ def main():
             "library_ms": largest["library_ms"]})
 
     # ---- 14. the animation through its CLI -------------------------------
-    ani_launches = _animation_phase(dev, grid32, card)
+    ani_launches = _animation_phase(dev, grid32)
 
     # ---- 15. all nine scenes ---------------------------------------------
     scene_launches = _scenes_phase(dev, grid32, card)
