@@ -98,8 +98,7 @@ def _render(args, anim, out_path: str, basename: str, mesh=None) -> int:
     from blackstar_tpu_torch.cli.render import _load_stars
     from blackstar_tpu_torch.config import torch_dtype
     from blackstar_tpu_torch.parallel.mesh import rank_zero_first
-    from blackstar_tpu_torch.video import (WRITER_THREADS, frame_path, render_animation,
-                                           require_device)
+    from blackstar_tpu_torch.video import frame_path, render_animation, require_device
 
     device = require_device(args.device if mesh is None else mesh.device)
     if not args.force:
@@ -118,7 +117,7 @@ def _render(args, anim, out_path: str, basename: str, mesh=None) -> int:
     if star_grid is not None:
         star_grid = star_grid.get(torch_dtype(anim.scene.dtype))
     if native.available():
-        print(f"PNG writer: native pool ({WRITER_THREADS} threads)")
+        print(f"PNG writer: native pool ({native.pool_threads()} threads)")
     else:
         print(f"PNG writer: pure Python, one frame at a time (native library unavailable: "
               f"{native.load_error})")

@@ -213,11 +213,10 @@ def _make_writer(args, mesh=None):
     """The native PNG pool for batch mode: needs --force and the library
     (and, sharded, rank 0)."""
     from blackstar_tpu_torch import native
-    from blackstar_tpu_torch.video import WRITER_THREADS
 
     if not args.force or (mesh is not None and mesh.rank) or not native.available():
         return None
-    return native.AsyncFrameWriter(WRITER_THREADS)
+    return native.AsyncFrameWriter()
 
 
 def _render_batch(args, star_grid, outdir: str, dirname: str, device: torch.device,

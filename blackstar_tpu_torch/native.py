@@ -1,16 +1,23 @@
-"""ctypes bindings to the native IO runtime (``native/blackstar_native.cpp``).
+"""ctypes bindings to the port's native IO runtime
+(``blackstar_tpu_torch/csrc/blackstar_native.cpp``).
 
 The library holds the production IO path of batch and animation renders:
-zlib PNG writing and an asynchronous frame-writer pool whose threads
-compress and write frames while the card renders the next ones. The C++
-source has no framework in it; the JAX package binds the same file.
+zlib PNG writing and an asynchronous frame-writer pool, one thread for each
+usable host CPU (:func:`pool_threads`), that deflates frames in bands and
+writes them while the card renders the next ones. The C++ source has no
+framework in it. It is the port's own copy, forked from the JAX package's
+``native/blackstar_native.cpp``, which stays as it is: the synchronous
+writers and the sRGB encode write the same bytes in both, and a frame the
+pool deflates as one band is byte-identical to theirs; a larger one is cut
+into primed bands (the source's header comment) and decodes to the same
+pixels.
 
-The port builds its own copy with ``g++ -lz`` at first use, through
+The port builds its copy with ``g++ -lz`` at first use, through
 ``ops/_build.py`` as it builds the kernels: into ``build/`` at the
 repository root, under a name that carries a hash of the source and of the
-flags, so the two packages never share a build product and an edited
-source rebuilds. Nothing is built or loaded at import. Without ``g++`` or ``zlib.h`` the library is
-unavailable: :func:`available` is False and :data:`load_error` says why;
+flags, so an edited source rebuilds. Nothing is built or loaded at import.
+Without ``g++`` or ``zlib.h`` the library is unavailable: :func:`available`
+is False and :data:`load_error` says why;
 :func:`blackstar_tpu_torch.imageio.write_png` then writes through its
 pure-Python encoder.
 """
@@ -18,6 +25,7 @@ pure-Python encoder.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 from typing import Optional
@@ -27,12 +35,12 @@ import numpy as np
 from blackstar_tpu_torch.ops import _build
 from blackstar_tpu_torch.ops._build import I, L, P
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
-    "blackstar_native.cpp")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "blackstar_native.cpp")
 FLAGS = ("-lz", "-pthread")  # linked after the source
+CPU_MAX = "/sys/fs/cgroup/cpu.max"  # the cgroup's CPU quota and period, where one is set
 
-_U8P, _F32P, _STR = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float), ctypes.c_char_p
+_U8P, _F32P, _F64P = (ctypes.POINTER(t) for t in (ctypes.c_uint8, ctypes.c_float, ctypes.c_double))
+_STR = ctypes.c_char_p
 LIBRARY = _build.Library(SOURCE, FLAGS, {
     name: _build.Entry(args, returns, stream=False) for name, args, returns in (
         ("bs_srgb_encode", (_F32P, _U8P, L, I), None),
@@ -42,6 +50,7 @@ LIBRARY = _build.Library(SOURCE, FLAGS, {
         ("bs_writer_submit", (P, _STR, _F32P, I, I, I), None),
         ("bs_writer_submit_rgb8", (P, _STR, _U8P, I, I, I), None),
         ("bs_writer_wait", (P,), I),
+        ("bs_writer_stats", (P, _F64P), None),
         ("bs_writer_destroy", (P,), None))
 })
 
@@ -72,6 +81,20 @@ def load():
 
 def available() -> bool:
     return load() is not None
+
+
+def pool_threads() -> int:
+    """The writer pool's threads: the CPUs this process may run on, capped
+    by the cgroup's CPU quota where :data:`CPU_MAX` sets one; at least 1."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open(CPU_MAX) as f:
+            quota, period = f.read().split()[:2]
+        if quota != "max":
+            n = min(n, math.ceil(int(quota) / int(period)))
+    except (OSError, ValueError):
+        pass  # no cgroup v2 quota here
+    return max(1, n)
 
 
 def _image(img: np.ndarray, dtype) -> np.ndarray:
@@ -113,20 +136,27 @@ def write_png_linear(img: np.ndarray, path: str, *, level: int = 6, n_threads: i
 
 
 class AsyncFrameWriter:
-    """Asynchronous PNG writer pool (the batch and animation IO path).
+    """Asynchronous PNG writer pool (the batch and animation IO path), with
+    :func:`pool_threads` threads.
 
     A frame is copied at :meth:`submit`, so the caller may reuse or free its
-    buffer as soon as the call returns; :meth:`wait` blocks until every
-    frame submitted so far is on disk and returns the count of failed
-    writes since the pool was made.
+    buffer as soon as the call returns; its filtered rows are deflated in
+    bands of about 512 KiB, each a task for any of the threads, and the
+    thread that deflates its last band writes the file. :meth:`wait` blocks
+    until every frame submitted so far is on disk and returns the count of
+    failed frames since the pool was made (a failed band or write fails its
+    frame once).
     """
 
-    def __init__(self, n_threads: int = 4):
+    STATS = ("frames", "bands", "deflate_s", "write_s", "bytes")
+
+    def __init__(self):
         lib = load()
         if lib is None:
             raise RuntimeError(f"native library unavailable: {load_error}")
         self._lib = lib
-        self._handle = lib.bs_writer_create(n_threads)
+        self.threads = pool_threads()
+        self._handle = lib.bs_writer_create(self.threads)
         if not self._handle:
             raise RuntimeError("bs_writer_create failed (allocation or thread start)")
 
@@ -156,6 +186,15 @@ class AsyncFrameWriter:
         """Block until every submitted frame is written; the error count."""
         self._check_open()
         return self._lib.bs_writer_wait(self._handle)
+
+    def stats(self) -> dict:
+        """Since the pool was made: ``frames`` written, ``bands`` deflated,
+        ``deflate_s`` and ``write_s`` (seconds summed over the threads:
+        deflating bands, writing files) and ``bytes`` written."""
+        self._check_open()
+        out = (ctypes.c_double * len(self.STATS))()
+        self._lib.bs_writer_stats(self._handle, out)
+        return {k: (v if k.endswith("_s") else int(v)) for k, v in zip(self.STATS, out)}
 
     def close(self) -> None:
         if self._handle:

@@ -8,8 +8,9 @@ the fast path that skips it: the cameras are interpolated on the device
 (:func:`blackstar_tpu_torch.animation.camera_at`), each frame runs
 ``render`` → ``bloom`` → ``encode_rgb8`` where the scene's parameters live
 (on a CUDA device through the march kernel B1 and the star kernel B3), and
-the finished uint8 frames go to the native writer pool, whose threads
-compress and write them while the card renders the next ones.
+the finished uint8 frames go to the native writer pool, one thread for
+each usable host CPU (``native.pool_threads``), which deflates them in
+bands and writes them while the card renders the next ones.
 
 Frames leave the card through two pinned host buffers in turn: frame k's
 copy is queued (``non_blocking``) with an event behind it, frame k+1 is
@@ -35,8 +36,6 @@ import torch
 from blackstar_tpu_torch.animation import Animation, camera_at, pad_zero, validate_keyframes
 from blackstar_tpu_torch.config import (CameraParams, Config, apply_preview,
                                         default_max_steps)
-
-WRITER_THREADS = 4  # the native pool's threads: PNG compression runs beside the renders
 
 
 def require_device(device) -> torch.device:
@@ -149,9 +148,12 @@ def render_animation(
     """Render every frame of ``anim`` to ``out_dir`` as PNGs; returns their
     paths in frame order.
 
-    Frames go to the native writer pool (:data:`WRITER_THREADS` threads) when
-    the library is available, else they are written one by one by
-    ``imageio.write_png``. Raises if a frame failed to write, and if
+    Frames go to the native writer pool (``native.AsyncFrameWriter``, one
+    thread for each usable host CPU) when the library is available, else
+    they are written one by one by ``imageio.write_png``. The pool's
+    counters are added to ``render_animation.pool`` (frames, bands,
+    deflate and write seconds, bytes) and its threads are kept in
+    ``render_animation.threads``. Raises if a frame failed to write, and if
     ``device`` is a CUDA device and none is present. With ``sharded``
     (:func:`frames`) only rank 0 writes; the other ranks return ``[]``.
     """
@@ -163,7 +165,8 @@ def render_animation(
     n = anim.n_frames
     writer = None
     if not (sharded and torch.distributed.get_rank()) and native.available():
-        writer = native.AsyncFrameWriter(WRITER_THREADS)
+        writer = native.AsyncFrameWriter()
+        render_animation.threads = writer.threads
     paths = []
     try:
         for i, rgb8 in frames(anim, star_grid=star_grid, preview=preview, device=device,
@@ -176,10 +179,20 @@ def render_animation(
             paths.append(path)
             if progress is not None:
                 progress(i + 1, n)
-        errors = writer.wait() if writer is not None else 0
+        errors = 0
+        if writer is not None:
+            errors = writer.wait()
+            for k, v in writer.stats().items():
+                render_animation.pool[k] += v
     finally:
         if writer is not None:
             writer.close()
     if errors:
         raise IOError(f"{errors} animation frame(s) failed to write")
     return paths
+
+
+# The native pool's counters, summed over calls (AsyncFrameWriter.stats),
+# and its threads in the last call that had one.
+render_animation.pool = {"frames": 0, "bands": 0, "deflate_s": 0.0, "write_s": 0.0, "bytes": 0}
+render_animation.threads = 0

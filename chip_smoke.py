@@ -106,8 +106,9 @@ phase exits non-zero):
    supersampled, float32, the 470k-star sky, bloom 0.7); B1, B3 and B5 must
    carry it, each launched once a frame (375 times) with no plain call, the
    native PNG writer pool must write it (the phase fails if the library
-   does not build), and frames 0 and 374 must be within 1 on the uint8 scale
-   of direct renders at the keyframe cameras;
+   does not build) in more than one band a frame, and frames 0 and 374
+   must be within 1 on the uint8 scale of direct renders at the keyframe
+   cameras;
 15. all nine reference scenes: in float64 through B1 and B3, at 16 px
    with a small star catalogue lit in each scene against
    ``tests/oracle.py`` computed now (one process a scene), and the three
@@ -665,7 +666,7 @@ def _animation_phase(dev, grid32):
     from blackstar_tpu_torch.render import render
     from blackstar_tpu_torch.stars import lookup_cuda as b3
     from blackstar_tpu_torch.stars.grid import StarGrid
-    from blackstar_tpu_torch.video import animation_config
+    from blackstar_tpu_torch.video import animation_config, render_animation
 
     _banner("14. animation: animate --render, animations/default-ani.yaml, 375 frames at "
             "1920x1080 supersampled, float32, 470k-star sky")
@@ -681,6 +682,7 @@ def _animation_phase(dev, grid32):
     try:
         b1.march_cuda.launches = b3.star_lookup_cuda.launches = b5.bloom_cuda.launches = 0
         geodesic.march.calls = StarGrid.lookup.calls = 0
+        pool_before = dict(render_animation.pool)
         log = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
@@ -698,6 +700,11 @@ def _animation_phase(dev, grid32):
             raise AssertionError(f"animate CLI returned {rc}")
         if "PNG writer: native pool" not in text:
             raise AssertionError("the animation was not written by the native writer pool")
+        pool = {k: v - pool_before[k] for k, v in render_animation.pool.items()}
+        print(f"  writer pool: {render_animation.threads} threads, {pool}")
+        if pool["frames"] != 375 or pool["bands"] <= 375:
+            raise AssertionError("the writer pool did not write 375 frames in more than one "
+                                 "band each")
         if ani_launches != {"b1": 375, "b3": 375, "b5": 375} or max(ani_plain.values()) != 0:
             raise AssertionError("the animation did not go through B1, B3 and B5 alone, once a "
                                  "frame")
