@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from blackstar_tpu_torch.config import (SceneParams, StaticConfig, param_leaves,
                                         params_from_leaves)
@@ -50,7 +51,11 @@ def image_loss(params: SceneParams, static: StaticConfig, target, star_grid=None
     ``pyramid > 0`` adds box-blurred comparison levels (radii 4, 8, 16, …)
     that give long-range gradients where rendered and target structures
     barely overlap. ``target`` may be the tuple of precomputed levels that
-    :func:`target_pyramid` returns.
+    :func:`target_pyramid` returns; else its levels are blurred here.
+
+    The levels run inside the profiler span ``fit.pyramid`` (the forward
+    only: autograd runs their backward later), and
+    ``image_loss.pyramid_blurs`` counts the blurs of the rendered image.
     """
     img = render(params, static, star_grid, mesh=mesh, differentiable=True)
     levels = None
@@ -61,18 +66,32 @@ def image_loss(params: SceneParams, static: StaticConfig, target, star_grid=None
     target = target.to(img.dtype)
     loss = torch.mean((img - target) ** 2)
     if pyramid:
-        for k in range(pyramid):
-            r = 4 << k
-            tb = levels[k + 1].to(img.dtype) if levels is not None else box_blur(target, r, passes=1)
-            loss = loss + torch.mean((box_blur(img, r, passes=1) - tb) ** 2)
-        loss = loss / (1 + pyramid)
+        with record_function("fit.pyramid"):
+            if levels is None:
+                levels = target_pyramid(target, pyramid)
+            for k in range(pyramid):
+                tb = levels[k + 1].to(img.dtype)
+                loss = loss + torch.mean((box_blur(img, 4 << k, passes=1) - tb) ** 2)
+            image_loss.pyramid_blurs += pyramid
+            loss = loss / (1 + pyramid)
     return loss
+
+
+image_loss.pyramid_blurs = 0  # box blurs of rendered images (one a level a loss)
 
 
 def target_pyramid(target: torch.Tensor, pyramid: int):
     """The blurred comparison levels of a constant target (radii 4, 8, …),
-    computed once; pass the tuple to :func:`image_loss` as the target."""
-    return (target,) + tuple(box_blur(target, 4 << k, passes=1) for k in range(pyramid))
+    computed once; pass the tuple to :func:`image_loss` as the target.
+    Runs inside the profiler span ``fit.target_pyramid``;
+    ``target_pyramid.blurs`` counts its blurs."""
+    with record_function("fit.target_pyramid"):
+        levels = (target,) + tuple(box_blur(target, 4 << k, passes=1) for k in range(pyramid))
+    target_pyramid.blurs += pyramid
+    return levels
+
+
+target_pyramid.blurs = 0  # box blurs of targets
 
 
 def trainable_mask(params: SceneParams, predicate) -> SceneParams:
