@@ -29,7 +29,7 @@ from torch.profiler import record_function
 
 from blackstar_tpu_torch.config import (SceneParams, StaticConfig, param_leaves,
                                         params_from_leaves)
-from blackstar_tpu_torch.ops.filters import box_blur
+from blackstar_tpu_torch.ops.filters import pyramid_blur
 from blackstar_tpu_torch.render import render
 
 ADAM_BETAS = (0.9, 0.999)
@@ -71,7 +71,7 @@ def image_loss(params: SceneParams, static: StaticConfig, target, star_grid=None
                 levels = target_pyramid(target, pyramid)
             for k in range(pyramid):
                 tb = levels[k + 1].to(img.dtype)
-                loss = loss + torch.mean((box_blur(img, 4 << k, passes=1) - tb) ** 2)
+                loss = loss + torch.mean((pyramid_blur(img, 4 << k) - tb) ** 2)
             image_loss.pyramid_blurs += pyramid
             loss = loss / (1 + pyramid)
     return loss
@@ -86,7 +86,7 @@ def target_pyramid(target: torch.Tensor, pyramid: int):
     Runs inside the profiler span ``fit.target_pyramid``;
     ``target_pyramid.blurs`` counts its blurs."""
     with record_function("fit.target_pyramid"):
-        levels = (target,) + tuple(box_blur(target, 4 << k, passes=1) for k in range(pyramid))
+        levels = (target,) + tuple(pyramid_blur(target, 4 << k) for k in range(pyramid))
     target_pyramid.blurs += pyramid
     return levels
 

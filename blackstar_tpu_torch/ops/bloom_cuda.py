@@ -12,6 +12,13 @@ never falls back from the kernel to the plain version, and on the card it
 reads nothing back from the device: the kernel reads a tensor ``strength``
 there. It is forward only: no caller differentiates through bloom (the fit
 compares renders before bloom).
+
+:func:`box_blur_cuda` is the same kernel at one pass and without the
+bloom's epilogue: ``filters.box_blur(img, r, passes=1)`` on the card, for
+the fit's loss pyramid (``filters.pyramid_blur``). It is differentiable.
+The zero-padded box filter is symmetric along each axis and the two axes'
+filters commute, so the blur is its own transpose: its backward is the same
+blur of the incoming gradient, and it saves nothing for it.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import os
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from blackstar_tpu_torch.ops import _build, filters
 from blackstar_tpu_torch.ops._build import D, I, L, P
@@ -36,6 +44,7 @@ COL_WIDTHS = (8, 4, 2, 1)
 
 LIBRARY = _build.Library(SOURCE, FLAGS, {
     "bs_bloom": _build.Entry((P, P, P, L, L, L, P, D, I, I, P, I, I, P, P), dtyped=True),
+    "bs_box_blur": _build.Entry((P, P, P, L, L, L, I, I, P, I, I, P, P), dtyped=True),
     "bs_bloom_smem_limit": _build.Entry((I,), stream=False),
 })
 
@@ -119,19 +128,74 @@ def bloom_radius_cuda(img: torch.Tensor, strength, r: int) -> torch.Tensor:
     on a CUDA device: :func:`bloom_cuda` at a radius given outright (a
     radius of 0 or less leaves the image to be blurred unchanged, as in
     ``box_blur``)."""
-    dev = img.device
-    if dev.type != "cuda":
-        raise ValueError(f"bloom_cuda: unsupported device {dev}")
+    img = _checked(img, "bloom_cuda")
     if torch.is_grad_enabled() and (img.requires_grad or getattr(strength, "requires_grad", False)):
         raise ValueError("bloom_cuda: the bloom kernel is forward only; the input requires grad")
+    s_ptr, s_val, _keep = _strength(strength, img.dtype, img.device)
+    out = _launch("bs_bloom", img, r, s_ptr, s_val)
+    bloom_cuda.launches += 1
+    return out
+
+
+bloom_cuda.launches = 0  # blooms launched (each the kernel's two launches): shows B5 ran
+
+
+def box_blur_cuda(img: torch.Tensor, r: int) -> torch.Tensor:
+    """One pass of the zero-padded box blur of radius ``r`` of an (H, W, 3)
+    image on a CUDA device, ``filters.box_blur(img, r, passes=1)``, by
+    kernel B5; differentiable, its backward the same blur of the gradient.
+    A radius of 0 or less returns ``img``, as ``box_blur`` does."""
+    img = _checked(img, "box_blur_cuda")
+    if r <= 0:
+        return img
+    return _BoxBlur.apply(img, int(r))
+
+
+box_blur_cuda.launches = 0  # blurs launched, forward and backward (each two kernel launches)
+box_blur_cuda.backward_launches = 0  # of those, the blurs of a gradient
+
+
+def _blur(img: torch.Tensor, r: int) -> torch.Tensor:
+    out = _launch("bs_box_blur", img, r)
+    box_blur_cuda.launches += 1
+    return out
+
+
+class _BoxBlur(torch.autograd.Function):
+    """B5's one-pass blur; the map is linear and its own transpose."""
+
+    @staticmethod
+    def forward(ctx, img, r):
+        ctx.r = r
+        return _blur(img, r)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        box_blur_cuda.backward_launches += 1
+        return _blur(grad.contiguous(), ctx.r), None
+
+
+def _checked(img: torch.Tensor, what: str) -> torch.Tensor:
+    """``img`` made contiguous, once it passes the checks of what B5 takes:
+    an (H, W, 3) image of a dtype of ``_build.DTYPES`` on a CUDA device,
+    with fewer than 2**31 elements."""
+    if img.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {img.device}")
     if img.dim() != 3 or img.shape[2] != 3:
-        raise ValueError(f"bloom_cuda: expected an (H, W, 3) image, got {tuple(img.shape)}")
+        raise ValueError(f"{what}: expected an (H, W, 3) image, got {tuple(img.shape)}")
     if img.dtype not in _build.DTYPES:
-        raise ValueError(f"bloom_cuda: unsupported dtype {img.dtype}")
+        raise ValueError(f"{what}: unsupported dtype {img.dtype}")
     if img.numel() >= 2**31:
-        raise ValueError(f"bloom_cuda: image of {img.numel()} elements is too large")
+        raise ValueError(f"{what}: image of {img.numel()} elements is too large")
+    return img.contiguous()
+
+
+def _launch(name: str, img: torch.Tensor, r: int, *args) -> torch.Tensor:
+    """B5's two launches of the entry ``name`` on a checked, contiguous
+    image, ``args`` between the radius and the plan; returns the output."""
+    dev = img.device
     h, w, _ = img.shape
-    img = img.contiguous()
     out = torch.empty_like(img)
     if not img.numel():
         return out
@@ -139,14 +203,9 @@ def bloom_radius_cuda(img: torch.Tensor, strength, r: int) -> torch.Tensor:
     tmp = torch.empty_like(img)
     scratch = [torch.empty((p.scratch,), dtype=img.dtype, device=dev) if p.scratch else None
                for p in (rows, cols)]
-    s_ptr, s_val, _keep = _strength(strength, img.dtype, dev)
-    LIBRARY.call("bs_bloom", img.data_ptr(), tmp.data_ptr(), out.data_ptr(), h, w,
-                 max(int(r), 0), s_ptr, s_val,
+    LIBRARY.call(name, img.data_ptr(), tmp.data_ptr(), out.data_ptr(), h, w, max(int(r), 0),
+                 *args,
                  rows.wc, rows.seg, 0 if scratch[0] is None else scratch[0].data_ptr(),
                  cols.wc, cols.seg, 0 if scratch[1] is None else scratch[1].data_ptr(),
                  dtype=img.dtype, device=dev)
-    bloom_cuda.launches += 1
     return out
-
-
-bloom_cuda.launches = 0  # blooms launched (each the kernel's two launches): shows B5 ran

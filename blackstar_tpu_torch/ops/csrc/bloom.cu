@@ -1,7 +1,8 @@
 // Bloom (kernel B5): out = img + strength * boxBlur(r, 3 passes)(img) for an
 // (H, W, 3) row-major image, with the box filter of width 2r+1 zero-padded
 // (pixels outside the image read as black) and normalised by 1 / (2r+1), as
-// ImageFilters.hs:28-86 defines it. Its plain twin is
+// ImageFilters.hs:28-86 defines it; and, at one pass without the epilogue,
+// out = boxBlur(r, 1 pass)(img), the fit's loss pyramid. Its plain twin is
 // blackstar_tpu_torch/ops/filters.py (box_blur, and bloom on the CPU).
 //
 // It replaces no TPU kernel: the JAX package blooms with plain jnp.cumsum
@@ -43,6 +44,22 @@
 // (0.142) and a first window built from per-segment sums (0.145) were
 // slower. What bounds the rest, above the 0.015 ms of the bytes, is not
 // measured: that needs a hardware profiler.
+//
+// Pass count. The number of passes is a template parameter of the kernel
+// (kPasses): 3 for the bloom, 1 for the levels of the fit's loss pyramid
+// (fit --pyramid K: radii 4, 8, 16, ..., one pass each), where the
+// columns launch writes the blur alone (`img` null). Each count is its own
+// instantiation, so neither path branches on the count at run time. The
+// pyramid differentiates its levels, and the blur is its own transpose:
+// along one axis the zero-padded filter A[x, y] = [|x - y| <= r] / (2r + 1)
+// is symmetric, and the two axes' filters commute, so the vector-Jacobian
+// product of the blur is the same blur of the gradient, one more call of
+// this kernel (blackstar_tpu_torch/ops/bloom_cuda.py, box_blur_cuda).
+// Measured at 1920x1080x3 on an H100 (both launches, graph clock): float32
+// 0.0567, 0.0580 and 0.0581 ms at r = 4, 8 and 16 (rows 0.026 and columns
+// 0.032 ms by torch.profiler), float64 0.098-0.101 ms; the plain one-pass
+// blur's forward 0.82-0.83 ms. Its bound is 0.0297 ms (two launches, each
+// one read and one write of the image), so about half its roofline.
 //
 // Second path. Where a strip's two buffers do not fit in a block's shared
 // memory (float32 columns taller than ~3,600 rows at WC = 8 take WC 4, 2 or
@@ -123,17 +140,20 @@ __device__ __forceinline__ void box_pass(const T* in, T* out, const Axis& A, int
   }
 }
 
-// A block's strip through buffers b0 and b1 (n x WC each): load, three
-// passes, store to dst (as img + strength * blur where `img` is given). In
+// A block's strip through buffers b0 and b1 (n x WC each): load, kPasses
+// passes (1 or 3), store to dst (as img + strength * blur where `img` is
+// given). An odd count leaves the blur in b1, so b0 is free for the
+// epilogue. In
 // shared memory the strip, and the image's strip for the epilogue, arrive
 // by asynchronous copies (cp.async): a thread issues all of its copies
 // before it waits once, so a block waits for device memory once a phase and
 // not once an element, and the copies take no registers.
-template <typename T, int WC, bool kShared>
+template <typename T, int WC, int kPasses, bool kShared>
 __device__ __forceinline__ void run_strip(const T* __restrict__ src, T* __restrict__ dst,
                                           const T* __restrict__ img,
                                           const T* __restrict__ strength_ptr, T strength,
                                           const Axis& A, int64_t base, int wc, T* b0, T* b1) {
+  static_assert(kPasses == 1 || kPasses == 3, "the blur must end in b1");
   using I = typename std::conditional<kShared, int, int64_t>::type;
   const I span = (I)(A.n * WC);
   for (I e = threadIdx.x; e < span; e += kThreads) {
@@ -155,10 +175,12 @@ __device__ __forceinline__ void run_strip(const T* __restrict__ src, T* __restri
   __syncthreads();
   box_pass<T, WC>(b0, b1, A, wc);
   __syncthreads();
-  box_pass<T, WC>(b1, b0, A, wc);
-  __syncthreads();
-  box_pass<T, WC>(b0, b1, A, wc);
-  __syncthreads();
+  if constexpr (kPasses == 3) {
+    box_pass<T, WC>(b1, b0, A, wc);
+    __syncthreads();
+    box_pass<T, WC>(b0, b1, A, wc);
+    __syncthreads();
+  }
 
   // The epilogue: b0 is free. Each thread reads back only the elements it
   // copied itself, so its own wait suffices.
@@ -190,7 +212,7 @@ __device__ __forceinline__ void run_strip(const T* __restrict__ src, T* __restri
 // lie in shared memory, or, where the wrapper passes `scratch`, in its own
 // slice of that (the branch is taken whole, so each copy of run_strip knows
 // the memory it addresses).
-template <typename T, int WC>
+template <typename T, int WC, int kPasses>
 __global__ void __launch_bounds__(kThreads)
 bloom_kernel(const T* __restrict__ src, T* __restrict__ dst, const T* __restrict__ img,
              const T* __restrict__ strength_ptr, T strength, Axis A, T* scratch) {
@@ -202,57 +224,61 @@ bloom_kernel(const T* __restrict__ src, T* __restrict__ dst, const T* __restrict
   const int64_t span = A.n * WC;
   if (scratch) {
     T* b0 = scratch + 2 * span * blockIdx.x;
-    run_strip<T, WC, false>(src, dst, img, strength_ptr, strength, A, base, wc, b0, b0 + span);
+    run_strip<T, WC, kPasses, false>(src, dst, img, strength_ptr, strength, A, base, wc, b0,
+                                     b0 + span);
   } else {
     T* b0 = reinterpret_cast<T*>(smem);
-    run_strip<T, WC, true>(src, dst, img, strength_ptr, strength, A, base, wc, b0, b0 + span);
+    run_strip<T, WC, kPasses, true>(src, dst, img, strength_ptr, strength, A, base, wc, b0,
+                                    b0 + span);
   }
 }
 
-template <typename T, int WC>
+template <typename T, int WC, int kPasses>
 int launch_wc(const T* src, T* dst, const T* img, const T* strength_ptr, T strength,
               const Axis& A, int64_t blocks, T* scratch, cudaStream_t stream) {
   const size_t smem = scratch ? 0 : (size_t)(2 * A.n * WC) * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bloom_kernel<T, WC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        bloom_kernel<T, WC, kPasses>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bloom_kernel<T, WC><<<(unsigned)blocks, kThreads, smem, stream>>>(src, dst, img, strength_ptr,
-                                                                   strength, A, scratch);
+  bloom_kernel<T, WC, kPasses><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      src, dst, img, strength_ptr, strength, A, scratch);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kPasses>
 int launch_pass(int wc, const T* src, T* dst, const T* img, const T* strength_ptr, T strength,
                 const Axis& A, int64_t blocks, T* scratch, cudaStream_t stream) {
   switch (wc) {
-    case 1: return launch_wc<T, 1>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
-    case 2: return launch_wc<T, 2>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
-    case 3: return launch_wc<T, 3>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
-    case 4: return launch_wc<T, 4>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
-    case 8: return launch_wc<T, 8>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
+    case 1: return launch_wc<T, 1, kPasses>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
+    case 2: return launch_wc<T, 2, kPasses>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
+    case 3: return launch_wc<T, 3, kPasses>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
+    case 4: return launch_wc<T, 4, kPasses>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
+    case 8: return launch_wc<T, 8, kPasses>(src, dst, img, strength_ptr, strength, A, blocks, scratch, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The rows launch writes the horizontal blur to `tmp`; the columns launch
-// blurs `tmp` vertically and writes img + strength * blur to `out`. Each
-// launch takes its strip width, segment length and scratch (null: shared
-// memory) from the wrapper's plan.
-template <typename T>
-int bloom(const void* img, void* tmp, void* out, int64_t h, int64_t w, int64_t r,
-          const void* strength_ptr, double strength, int row_wc, int row_seg,
-          void* row_scratch, int col_wc, int col_seg, void* col_scratch, void* stream) {
+// blurs `tmp` vertically and writes to `out` the blur, or, where `img` is
+// given (the bloom), img + strength * blur. Each launch takes its strip
+// width, segment length and scratch (null: shared memory) from the
+// wrapper's plan.
+template <typename T, int kPasses>
+int blur(const void* src, void* tmp, void* out, int64_t h, int64_t w, int64_t r, const void* img,
+         const void* strength_ptr, double strength, int row_wc, int row_seg, void* row_scratch,
+         int col_wc, int col_seg, void* col_scratch, void* stream) {
   const double inv = 1.0 / (2.0 * (double)r + 1.0);
   const Axis rows{w, 3, 3, 3 * w, row_seg, (int)std::min(r, w), inv};
   const Axis cols{h, 3 * w, 3 * w, 0, col_seg, (int)std::min(r, h), inv};
   const cudaStream_t s = (cudaStream_t)stream;
-  int e = launch_pass<T>(row_wc, (const T*)img, (T*)tmp, nullptr, nullptr, T(0), rows,
-                         h * ((3 + row_wc - 1) / row_wc), (T*)row_scratch, s);
+  int e = launch_pass<T, kPasses>(row_wc, (const T*)src, (T*)tmp, nullptr, nullptr, T(0), rows,
+                                  h * ((3 + row_wc - 1) / row_wc), (T*)row_scratch, s);
   if (e) return e;
-  return launch_pass<T>(col_wc, (const T*)tmp, (T*)out, (const T*)img, (const T*)strength_ptr,
-                        T(strength), cols, (3 * w + col_wc - 1) / col_wc, (T*)col_scratch, s);
+  return launch_pass<T, kPasses>(col_wc, (const T*)tmp, (T*)out, (const T*)img,
+                                 (const T*)strength_ptr, T(strength), cols,
+                                 (3 * w + col_wc - 1) / col_wc, (T*)col_scratch, s);
 }
 
 }  // namespace
@@ -270,15 +296,31 @@ int bs_bloom_smem_limit(int device) {
 int bs_bloom_f32(const void* img, void* tmp, void* out, int64_t h, int64_t w, int64_t r,
                  const void* strength_ptr, double strength, int row_wc, int row_seg,
                  void* row_scratch, int col_wc, int col_seg, void* col_scratch, void* stream) {
-  return bloom<float>(img, tmp, out, h, w, r, strength_ptr, strength, row_wc, row_seg,
-                      row_scratch, col_wc, col_seg, col_scratch, stream);
+  return blur<float, 3>(img, tmp, out, h, w, r, img, strength_ptr, strength, row_wc, row_seg,
+                        row_scratch, col_wc, col_seg, col_scratch, stream);
 }
 
 int bs_bloom_f64(const void* img, void* tmp, void* out, int64_t h, int64_t w, int64_t r,
                  const void* strength_ptr, double strength, int row_wc, int row_seg,
                  void* row_scratch, int col_wc, int col_seg, void* col_scratch, void* stream) {
-  return bloom<double>(img, tmp, out, h, w, r, strength_ptr, strength, row_wc, row_seg,
-                       row_scratch, col_wc, col_seg, col_scratch, stream);
+  return blur<double, 3>(img, tmp, out, h, w, r, img, strength_ptr, strength, row_wc, row_seg,
+                         row_scratch, col_wc, col_seg, col_scratch, stream);
+}
+
+// One pass of the box blur alone (no epilogue): the levels of the fit's
+// loss pyramid.
+int bs_box_blur_f32(const void* img, void* tmp, void* out, int64_t h, int64_t w, int64_t r,
+                    int row_wc, int row_seg, void* row_scratch, int col_wc, int col_seg,
+                    void* col_scratch, void* stream) {
+  return blur<float, 1>(img, tmp, out, h, w, r, nullptr, nullptr, 0.0, row_wc, row_seg,
+                        row_scratch, col_wc, col_seg, col_scratch, stream);
+}
+
+int bs_box_blur_f64(const void* img, void* tmp, void* out, int64_t h, int64_t w, int64_t r,
+                    int row_wc, int row_seg, void* row_scratch, int col_wc, int col_seg,
+                    void* col_scratch, void* stream) {
+  return blur<double, 1>(img, tmp, out, h, w, r, nullptr, nullptr, 0.0, row_wc, row_seg,
+                         row_scratch, col_wc, col_seg, col_scratch, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@ The running window sum is an exclusive prefix sum and the difference of two
 of its entries per pixel, as in the JAX package. These are plain tensor ops:
 the JAX package has no hand-written kernel for this stage either. On a CUDA
 device ``bloom`` launches the hand-written kernel B5 (``ops/bloom_cuda.py``)
-instead; ``box_blur``, which the fit's loss differentiates, stays plain.
+instead, and ``pyramid_blur``, the fit's blurred loss levels, launches B5 at
+one pass (forward and backward). ``box_blur`` stays plain on every device:
+it is the twin that B5 is held to on the card.
 """
 
 from __future__ import annotations
@@ -62,6 +64,18 @@ def bloom(img: torch.Tensor, strength, divider: int) -> torch.Tensor:
     w = img.shape[1]
     blurred = box_blur(img, w // divider, passes=3)
     return img + strength * blurred
+
+
+def pyramid_blur(img: torch.Tensor, r: int) -> torch.Tensor:
+    """One pass of the box blur of radius ``r``, a level of the fit's loss
+    pyramid: ``box_blur(img, r, passes=1)`` on the CPU; on any other device
+    the blur kernel's wrapper, which launches B5 on a CUDA device (its
+    backward too) and raises for anything else."""
+    if img.device.type != "cpu":
+        from blackstar_tpu_torch.ops.bloom_cuda import box_blur_cuda
+
+        return box_blur_cuda(img, r)
+    return box_blur(img, r, passes=1)
 
 
 def supersample(img: torch.Tensor) -> torch.Tensor:

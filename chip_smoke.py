@@ -162,6 +162,12 @@ phase exits non-zero):
    the card (``torch.cuda.set_sync_debug_mode("error")``); then B5's and
    the plain bloom's times at the frame's shape on the graph clock, beside
    B5's bound (one read and one write of the image), and B5's wrapper's.
+   Then B5 at one pass (``box_blur_cuda``, the fit pyramid's blur) on a
+   random 1920×1080 image at r 4, 8 and 16, its values and its gradient of
+   ``<blur(x), cot>`` against the plain float64 blur's, within 1.5e-5 in
+   float32 and 1e-12 in float64; its time at each radius beside its bound
+   (two reads and two writes of the image); and one ``fit_scene(pyramid=3)``
+   step, which must blur through it 9 times, 3 of them backward.
 
 The last two lines of stdout are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``. Per kernel, ``ms`` is the wrapper's time
@@ -184,6 +190,8 @@ render CLI's run of phase 5; B1's and B3's ``launches_animation`` and
 render of phase 15; K1, K2 and the probe kernels: in their entry points'
 runs; B1-B4's ``launches_sharded``: in ``fit --sharded``'s run of phase 17,
 and B1's and B3's ``launches_sharded_render`` in its render CLI's run);
+B5's ``*_pyramid`` fields those of its one-pass blur (phase 20:
+``kernel_ms_pyramid`` per radius, the launches in its pyramid fit step);
 ``bound_ms`` the least time the card could take for the same work on
 this run's data (the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s, float32 without tensor cores).
@@ -872,9 +880,80 @@ def _bloom_phase(dev, grid32, card):
           f"bound {bound[0]:.4f} ms by {bound[1]} (share {bound[0] / kernel_ms:.3f}); plain bloom "
           f"{plain_ms:.4f} ms; wrapper {wrapper_ms:.4f} ms a host call  [{card}]")
     print(f"  plan: rows {rows}, columns {cols}")
-    return {"name": "bloom (B5)", "route": "cuda", "source": "blackstar_tpu_torch/ops/csrc/bloom.cu",
-            "replaces": None, "max_abs_err": err, "ms": wrapper_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    entry = {"name": "bloom (B5)", "route": "cuda", "source": "blackstar_tpu_torch/ops/csrc/bloom.cu",
+             "replaces": None, "max_abs_err": err, "ms": wrapper_ms, "kernel_ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    entry.update(_pyramid_blur_phase(dev, grid32, card))
+    return entry
+
+
+def _pyramid_blur_phase(dev, grid32, card):
+    """Phase 20's second half: B5 at one pass, the fit pyramid's blur
+    (``box_blur_cuda``), and its gradient against the plain float64 blur at
+    the pyramid's radii on a 1080p image; its time beside its bound; one
+    ``fit_scene(pyramid=3)`` step through it. Returns the B5 entry's
+    one-pass fields."""
+    from blackstar_tpu_torch.fit import fit_scene, trainable_mask
+    from blackstar_tpu_torch.ops import bloom_cuda as b5
+    from blackstar_tpu_torch.ops.filters import box_blur
+    from blackstar_tpu_torch.render import render
+    from blackstar_tpu_torch.scripts import graph_ms
+
+    budget = 1.5e-5  # as the bloom's
+    radii = (4, 8, 16)  # fit --pyramid 3
+    rng = np.random.default_rng(20)
+    img = torch.from_numpy(rng.uniform(0, 1.3, (1080, 1920, 3))).to(dev)
+    cot = torch.from_numpy(rng.uniform(-1, 1, (1080, 1920, 3))).to(dev)
+    err = 0.0
+    for r in radii:
+        x64 = img.detach().requires_grad_()
+        want = box_blur(x64, r, passes=1)
+        want.backward(cot)
+        for dt, tol in ((torch.float32, budget), (torch.float64, 1e-12)):
+            x = img.to(dt).detach().requires_grad_()  # a leaf, also where dt is img's
+            got = b5.box_blur_cuda(x, r)
+            got.backward(cot.to(dt))
+            d = (got.double() - want.detach()).abs().max().item()
+            g = (x.grad.double() - x64.grad).abs().max().item()
+            print(f"  one pass, random 1080x1920, r {r}, {str(dt)[6:]}: max |d| {d:.3g}, "
+                  f"gradient of <blur(x), cot> {g:.3g} vs the float64 plain blur (limit {tol:g})")
+            if not (d <= tol and g <= tol):
+                raise AssertionError(f"B5's one-pass blur at r {r} in {dt} misses the plain "
+                                     f"blur by {d:.3g} (gradient {g:.3g})")
+            if dt == torch.float32:
+                err = max(err, d, g)
+    del x64, want, x, got
+
+    img32 = img.float()
+    pass_ms = {r: graph_ms(lambda r=r: b5.box_blur_cuda(img32, r), 50) for r in radii}
+    # rows launch reads the image and writes tmp, columns launch reads tmp
+    # and writes the blur: blur_roofline.pyramid's 2 axes × (read + write)
+    bound = _bound(4 * img32.numel() * img32.element_size(), 0)
+    print("  one pass at 1920x1080x3 float32 (graph clock): "
+          + ", ".join(f"r {r} {ms:.4f} ms" for r, ms in pass_ms.items())
+          + f" (both launches); bound {bound[0]:.4f} ms by {bound[1]}  [{card}]")
+    del img, cot, img32
+
+    cfg_t = _scene(1920, 1080, "float32", disk_outer=12.5)
+    target = render(cfg_t.params(dev), cfg_t.static(), grid32)  # before bloom
+    cfg = _scene(1920, 1080, "float32")
+    params, static = cfg.params(dev), cfg.static()
+    mask = trainable_mask(params, lambda path: "disk.outer" in path)
+    b5.box_blur_cuda.launches = b5.box_blur_cuda.backward_launches = 0
+    _, losses = fit_scene(params, static, target, grid32, steps=1, learning_rate=0.05,
+                          grad_mask=mask, pyramid=3)
+    counts = {"launches_pyramid": b5.box_blur_cuda.launches,
+              "backward_launches_pyramid": b5.box_blur_cuda.backward_launches}
+    print(f"  one fit_scene(pyramid=3) step at 1920x1080 float32: loss {losses[0]:.6g}, "
+          f"B5 one-pass blurs {counts}")
+    # the target's 3 levels once a job, the loss's 3 levels forward and back
+    if counts != {"launches_pyramid": 9, "backward_launches_pyramid": 3}:
+        raise AssertionError(f"the pyramid step did not blur through B5 9 times, 3 backward: "
+                             f"{counts}")
+    if not np.isfinite(losses[0]):
+        raise AssertionError(f"the pyramid step's loss is {losses[0]}")
+    return {"max_abs_err_pyramid": err, "kernel_ms_pyramid": pass_ms,
+            "bound_ms_pyramid": bound[0], **counts}
 
 
 def _star_build_phase(grid_path):

@@ -126,3 +126,23 @@ def test_spans_under_the_profiler(case, pyramid):
     expect = 1 if pyramid else 0
     assert (names.count("fit.pyramid"), names.count("fit.target_pyramid")) == \
         (2 * expect, expect)
+
+
+@pytest.mark.parametrize("entry", ["image_loss", "fit_scene"])
+def test_no_pyramid_never_blurs(case, monkeypatch, entry):
+    """With ``pyramid=0`` neither the loss nor the fit calls a blur."""
+    from blackstar_tpu_torch.ops import bloom_cuda, filters
+
+    def refuse(*args, **kw):
+        raise AssertionError("a blur ran without a pyramid")
+
+    for owner, name in ((tfit, "pyramid_blur"), (filters, "pyramid_blur"),
+                        (filters, "box_blur"), (bloom_cuda, "box_blur_cuda")):
+        monkeypatch.setattr(owner, name, refuse)
+    static, target = _small(case)
+    if entry == "image_loss":
+        params = tfit.init_train_state(_program_params(case)).params
+        tfit.image_loss(params, static, target, case["grid"], pyramid=0).backward()
+    else:
+        tfit.fit_scene(_program_params(case), static, target, case["grid"], steps=2,
+                       learning_rate=LR, pyramid=0)
